@@ -6,24 +6,42 @@ Run from the root of a checkout on a host with one NVIDIA card::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, in parallel, into ``build/kernels``), then:
+source, in parallel, into ``build/kernels``), then drives the port's two
+paths, each with every kernel launch counter zeroed just before it and
+read just after:
 
-1. ``analyze`` — the port's main path: ``repro_torch.launch.analyze
-   --executor threads --compute device --device cuda`` on the reference
-   benchmark's STANDARD workload (48 profiles, 8 host + 40 device metrics,
-   ~196k unified contexts), generated from a seed.  Every kernel launch
-   counter is zeroed just before and read just after; each kernel of the
-   path must have launched.
+1. ``analyze`` — ``repro_torch.launch.analyze --executor threads --compute
+   device --device cuda`` on the reference benchmark's STANDARD workload
+   (48 profiles, 8 host + 40 device metrics, ~196k unified contexts),
+   generated from a seed; each kernel of the path must have launched.
 2. ``float_parity`` — the same workload through ``--compute cpu``: every
    PMS plane must agree within ``atol=1e-3, rtol=1e-4`` (f32-class data)
    and the trace files must be byte-identical.
 3. ``exact_parity`` — an integer-valued workload of the same shape through
    both computes: ``db.pms``, ``db.cms`` and ``db.trc`` byte-identical.
-4. ``kernels`` — each kernel on the inputs the main path gave it, against
-   its plain PyTorch version on the card, with its time, the plain
-   version's, one library call's and the least time the card could take.
-5. ``determinism`` — one inclusive column scanned alone and inside the
+4. ``determinism`` — one inclusive column scanned alone and inside the
    main path's batch gives bitwise-equal results.
+5. ``train`` — ``repro_torch.launch.train --arch qwen3-0.6b`` at full width
+   (28 layers, 596,049,920 bf16 parameters, f32 moments), 5 steps at
+   batch 8 x 128, with a profile and a checkpoint: step times, tokens/s,
+   peak device memory, finite losses.
+   ``train_trace`` — the train phase's Trainer takes one more step under
+   ``torch.profiler``: its device time, kernel launches and idle share.
+6. ``train_parity`` — the full-width model cut to 2 layers, batch 2 x 128,
+   one seed: loss and gradient global norm on the card against the port
+   on the CPU, within 1e-2 and 2e-2 relative (bf16).
+7. ``train_profile`` — the port's ``analyze`` on the card over the train
+   phase's ``worker0.rprf``: the database holds its host and device
+   metrics, and the analyze kernels launched.
+8. ``resume`` — ``--resume`` from the train phase's checkpoint takes one
+   more step.
+9. ``compression`` — the full model's flattened f32 gradient (291,040
+   blocks of 2048) through 3 rounds of ``int8_compress`` error feedback on
+   the ``int8_quant`` kernel; each round bit-equal to the plain version.
+10. ``kernels`` — each kernel on the inputs its path gave it, against its
+    plain PyTorch version on the card, with its time, the plain version's,
+    one library call's where there is one, and the least time the card
+    could take.
 
 Every line before the last is one JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero without
@@ -33,13 +51,16 @@ package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import io
 import json
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
+import math
 import time
 from pathlib import Path
 
@@ -50,6 +71,11 @@ SEED_FLOAT, SEED_INT = 1, 2
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 ATOL, RTOL = 1e-3, 1e-4
+ARCH = "qwen3-0.6b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 8, 128
+PARITY_LAYERS, PARITY_BATCH = 2, 2
+PARITY_RTOL_LOSS, PARITY_RTOL_GNORM = 1e-2, 2e-2  # bf16, card vs CPU
+COMPRESSION_ROUNDS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -159,19 +185,26 @@ def bound(nbytes: int, nops: int) -> tuple[float, str]:
 def kernel_entry(name, source, replaces, launches, kernel, plain, library,
                  nbytes, nops, exact, on_path=True) -> dict:
     """Run ``kernel`` and ``plain`` on the same inputs, compare and time.
-    Integer results must be equal; float ones agree within RTOL of the
-    largest magnitude, since the two sum in different orders."""
+    ``exact`` results must be bit-equal; others agree within RTOL of the
+    largest magnitude, since the two sum in different orders.  A kernel may
+    return a tuple of tensors."""
     import torch
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    err, scale = 0.0, 0.0
-    if got.numel():
-        err = float((got.double() - want.double()).abs().max())
-        scale = float(want.double().abs().max())
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err, scale, tol = 0.0, 0.0, 0.0
+    for g, w in zip(got, want, strict=True):
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"{name}: kernel gives {g.dtype}{tuple(g.shape)}, plain "
+                f"{w.dtype}{tuple(w.shape)}")
+        if g.numel():
+            err = max(err, float((g.double() - w.double()).abs().max()))
+            scale = max(scale, float(w.double().abs().max()))
+        if exact:
+            require(torch.equal(_bits(g), _bits(w)),
+                    f"{name}: kernel and plain version differ in bits")
     tol = 0.0 if exact else RTOL * max(1.0, scale)
-    require(got.shape == want.shape and got.dtype == want.dtype,
-            f"{name}: kernel gives {got.dtype}{tuple(got.shape)}, plain "
-            f"{want.dtype}{tuple(want.shape)}")
     require(err <= tol, f"{name}: max_abs_err {err} > tolerance {tol}")
     ms = time_ms(kernel)
     bound_ms, bound_by = bound(nbytes, nops)
@@ -181,6 +214,222 @@ def kernel_entry(name, source, replaces, launches, kernel, plain, library,
             "plain_ms": time_ms(plain),
             "library_ms": time_ms(library) if library else None,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _bits(t):
+    import torch
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def run_train(train, argv):
+    """The port's training CLI; its Trainer, optimizer state, stdout and
+    wall seconds."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        tr, opt = train.main(argv)
+    return tr, opt, buf.getvalue(), time.perf_counter() - t0
+
+
+def free_card() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_phase(train, work: Path):
+    """Full-width training through the CLI, with profile and checkpoint;
+    returns the Trainer and its optimizer state too, for the trace."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models.api import model_flops, n_params
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    prof, ckpt = work / "train_prof", work / "train_ckpt"
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.reset()
+    tr, opt, _, wall = run_train(train, [
+        "--arch", ARCH, "--steps", str(TRAIN_STEPS),
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+        "--profile-dir", str(prof), "--ckpt-dir", str(ckpt),
+        "--ckpt-every", str(TRAIN_STEPS), "--device", "cuda"])
+    launches = _build.launch_counts.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    history = tr.history
+    cfg = get_arch(ARCH)
+    steps = [h["step_time"] for h in history]
+    median = statistics.median(steps[1:])
+    flops = model_flops(cfg, ShapeConfig("smoke", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"))
+    out = {"arch": ARCH, "params": n_params(cfg), "steps": len(history),
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "wall_s": wall,
+           "step_s": steps, "median_step_s_after_first": median,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median,
+           "model_tflop_per_step_6nd": flops / 1e12,
+           "model_tflop_per_s": flops / median / 1e12,
+           "max_memory_allocated": peak,
+           "losses": [h["loss"] for h in history],
+           "grad_norms": [h["grad_norm"] for h in history],
+           "launches": launches}
+    require(len(history) == TRAIN_STEPS, f"train took {len(history)} steps")
+    require(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                for h in history), f"train losses not finite: {out}")
+    require((prof / "worker0.rprf").is_file(), "train wrote no profile")
+    return out, prof / "worker0.rprf", ckpt, tr, opt
+
+
+def train_parity_phase() -> dict:
+    """The full-width model cut to 2 layers, one seed, on the card and on
+    the CPU: loss and gradient global norm."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import params as P
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optimizer import global_norm
+    cfg = get_arch(ARCH).replace(n_layers=PARITY_LAYERS)
+    tree = P.init_params(build_model(cfg, device="meta").param_defs(),
+                         torch.Generator().manual_seed(SEED_FLOAT),
+                         cfg.dtype, "cpu")
+    tokens = torch.from_numpy(TokenPipeline(cfg.vocab_size, TRAIN_SEQ,
+                                            PARITY_BATCH).batch_at(0))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = P.from_reference(build_model(cfg, device=dev), tree)
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(model, {"tokens": tokens.to(dev)})
+        gnorm = global_norm(grads.values())
+        res[dev] = {"loss": float(loss), "grad_norm": float(gnorm),
+                    "seconds": time.perf_counter() - t0}
+        del model, grads
+    free_card()
+    rel_loss = abs(res["cuda"]["loss"] - res["cpu"]["loss"]) / abs(
+        res["cpu"]["loss"])
+    rel_gnorm = abs(res["cuda"]["grad_norm"] - res["cpu"]["grad_norm"]) / abs(
+        res["cpu"]["grad_norm"])
+    out = {"layers": PARITY_LAYERS, "batch": PARITY_BATCH, "seq": TRAIN_SEQ,
+           "seed": SEED_FLOAT, **res, "rel_loss": rel_loss,
+           "rel_grad_norm": rel_gnorm, "rtol_loss": PARITY_RTOL_LOSS,
+           "rtol_grad_norm": PARITY_RTOL_GNORM}
+    require(rel_loss <= PARITY_RTOL_LOSS and rel_gnorm <= PARITY_RTOL_GNORM,
+            f"card and CPU disagree: {out}")
+    return out
+
+
+def train_profile_phase(analyze, rprf: Path, work: Path) -> dict:
+    """The port's analyze on the card over the train profile."""
+    from repro_torch.core.metrics import INCLUSIVE_BIT, MetricRegistry
+    from repro_torch.core.pms import PMSReader
+    from repro_torch.kernels import _build
+    _build.launch_counts.reset()
+    summary, wall = run_analyze(analyze, [str(rprf)], work / "train_db",
+                                "--compute", "device", "--device", "cuda")
+    counts = _build.launch_counts.snapshot()
+    with PMSReader(summary["pms"]) as r:
+        reg = MetricRegistry.from_json(r.meta["registry"])
+        _, mids, _ = r.plane(0).triplets()
+        names = sorted({reg.name_of(int(m) & ~INCLUSIVE_BIT)
+                        for m in set(mids.tolist())})
+    out = {"profile": str(rprf.name), "wall_s": wall,
+           "contexts": summary["contexts"], "values": summary["values"],
+           "metrics": names, "launches": counts}
+    for m in ("host.step_time", "dev.bytes_hbm", "dev.occupancy",
+              "dev.flops"):
+        require(m in names, f"train profile database lacks {m}: {out}")
+    for k in ("blockscan_f32", "blockscan_i64", "histogram"):
+        require(counts.get(k, 0) > 0, f"train_profile never launched {k}")
+    return out
+
+
+def resume_phase(train, ckpt: Path) -> dict:
+    tr, _, stdout, wall = run_train(train, [
+        "--arch", ARCH, "--steps", "1", "--batch", str(TRAIN_BATCH),
+        "--seq", str(TRAIN_SEQ), "--ckpt-dir", str(ckpt), "--resume",
+        "--device", "cuda"])
+    history = tr.history
+    del tr
+    free_card()
+    out = {"wall_s": wall, "history": history,
+           "resumed": f"resumed from step {TRAIN_STEPS}" in stdout}
+    require(out["resumed"] and [h["step"] for h in history] == [TRAIN_STEPS]
+            and math.isfinite(history[0]["loss"]), f"resume failed: {out}")
+    return out
+
+
+def train_trace_phase(tr, opt, median_step_s: float):
+    """Where a full-width step's time goes: the train phase's Trainer takes
+    one more step under ``torch.profiler`` (device time by kernel, kernel
+    launches); then one more backward pass of its model, whose flattened
+    f32 gradient feeds compression."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.loop import value_and_grad
+    tr.profiler = tr.ckpt = None  # the train phase's profile is written
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.run(opt, start_step=TRAIN_STEPS, steps=1)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    device_ms = sum(dev_us(e) for e in kernels) / 1e3
+    step_ms = tr.history[-1]["step_time"] * 1e3
+    median_ms = median_step_s * 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    require(device_ms > 0, "torch.profiler saw no device time")
+    out = {"step": TRAIN_STEPS, "step_ms_profiled": step_ms,
+           "device_ms": device_ms,
+           "kernel_launches": sum(e.count for e in kernels),
+           # device time over the wall time of the same profiled step
+           "idle_share": 1.0 - device_ms / step_ms,
+           # the same device time over the train phase's median step
+           "median_step_ms_unprofiled": median_ms,
+           "idle_share_vs_median_step": 1.0 - device_ms / median_ms,
+           "top_kernels": [{"name": e.key[:80], "count": e.count,
+                            "ms": dev_us(e) / 1e3} for e in top]}
+    tokens = torch.from_numpy(tr.pipeline.batch_at(0)).cuda()
+    _, grads = value_and_grad(tr.model, {"tokens": tokens})
+    g = torch.cat([t.float().reshape(-1) for t in grads.values()])
+    del grads
+    return out, g
+
+
+def compression_phase(g) -> tuple[dict, object]:
+    """3 rounds of int8 error feedback on the kernel, each round against
+    the plain version on the same input; returns the last input."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import int8_quant as q8
+    from repro_torch.train import compression as comp
+    residual = torch.zeros_like(g)
+    rounds, last = [], None
+    _build.launch_counts.reset()
+    t0 = time.perf_counter()
+    for i in range(COMPRESSION_ROUNDS):
+        x = g + residual
+        (q, scales), residual = comp.int8_compress(g, residual)
+        torch.cuda.synchronize()
+        pq, ps, pe = q8.int8_quant_plain(x, q8.DEFAULT_BLOCK_N)
+        equal = (torch.equal(q, pq) and torch.equal(_bits(scales), _bits(ps))
+                 and torch.equal(_bits(residual), _bits(pe)))
+        rounds.append({"round": i, "blocks": scales.numel(),
+                       "bit_equal": equal,
+                       "residual_max_abs": float(residual.abs().max()),
+                       "scale_max": float(scales.max())})
+        require(equal, f"int8_quant round {i}: kernel and plain differ")
+        del pq, ps, pe
+        last = x
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts.snapshot()
+    out = {"values": g.numel(), "rounds": rounds, "wall_s": wall,
+           "launches": counts}
+    require(counts.get("int8_quant", 0) == COMPRESSION_ROUNDS,
+            f"compression launched int8_quant {counts.get('int8_quant', 0)} "
+            f"times, expected {COMPRESSION_ROUNDS}")
+    return out, last
 
 
 def main() -> int:
@@ -196,9 +445,10 @@ def main() -> int:
     from repro_torch.data import synth
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import blockscan as bs
+    from repro_torch.kernels import int8_quant as q8
     from repro_torch.kernels import scatter_add as sc
     from repro_torch.kernels import segstats as ss
-    from repro_torch.launch import analyze
+    from repro_torch.launch import analyze, train
 
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -270,7 +520,8 @@ def main() -> int:
                                "cpu_wall_s": icpu_wall, **same}})
         require(all(same.values()), f"integer databases differ: {same}")
 
-        # -- 4. each kernel on the main path's inputs, against plain
+        # -- 4. each kernel of the analyze path on its inputs, against its
+        #    plain version (emitted with the int8_quant entry, after 9.)
         ids, vals, n_seg = rec.args("segstats")
         (xf,) = rec.args("blockscan_f32")
         (xi,) = rec.args("blockscan_i64")
@@ -317,9 +568,8 @@ def main() -> int:
                 0, hids, fvals),
             8 * hids.numel() + 4 * hids.numel() + 4 * n_bins,
             hids.numel(), False, on_path=False))
-        emit({"kernels": entries})
 
-        # -- 5. determinism: a column alone vs inside the batch
+        # -- determinism: a column alone vs inside the batch
         xb, end = rec.args("inclusive")
         j = xb.shape[1] // 2
         alone = ops.inclusive_from_exclusive(xb[:, j:j + 1].contiguous(), end)
@@ -332,6 +582,30 @@ def main() -> int:
         emit({"determinism": det})
         require(det["inclusive_equal"] and det["scan_equal"],
                 f"a column's result depends on its batch: {det}")
+
+        # -- 5.-9. the training path, then compression on its gradient
+        out, rprf, ckpt, tr, opt = train_phase(train, work)
+        emit({"train": out})
+        trace, g = train_trace_phase(tr, opt,
+                                     out["median_step_s_after_first"])
+        del tr, opt
+        free_card()
+        emit({"train_trace": trace})
+        emit({"train_parity": train_parity_phase()})
+        emit({"train_profile": train_profile_phase(analyze, rprf, work)})
+        emit({"resume": resume_phase(train, ckpt)})
+        out, x = compression_phase(g)
+        del g
+        emit({"compression": out})
+        nb = -(-x.numel() // q8.DEFAULT_BLOCK_N)
+        entries.append(kernel_entry(
+            "int8_quant", src + "int8_quant.cu",
+            "src/repro/kernels/int8_quant.py:31",
+            out["launches"]["int8_quant"],
+            lambda: q8.int8_quant_cuda(x, q8.DEFAULT_BLOCK_N),
+            lambda: q8.int8_quant_plain(x, q8.DEFAULT_BLOCK_N), None,
+            9 * x.numel() + 4 * nb, 8 * x.numel(), True))
+        emit({"kernels": entries})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -1,0 +1,8 @@
+"""yi-6b: llama-arch dense GQA [arXiv:2403.04652; hf]."""
+from repro_torch.configs.base import ModelConfig, register_arch
+
+CONFIG = register_arch(ModelConfig(
+    name="yi-6b", family="dense",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=4,
+    d_ff=11008, vocab_size=64000, rope_theta=5e6,
+))

@@ -1,0 +1,156 @@
+"""Parameter definitions, initialisation, and the weights-across functions.
+
+Port of :mod:`repro.models.params`.  Models declare their parameters as a
+nested dict of :class:`ParamDef` in the reference's layout: the layer
+stack is one ``(L, ...)`` array per name under ``"layers"``.  The port's
+modules hold one parameter per layer instead (``layers.<i>.<name>``), so
+this module also converts between the two:
+
+* :func:`unstack` / :func:`stack` — a reference tree and a flat dict keyed
+  by module parameter name;
+* :func:`from_reference` loads a reference tree (numpy arrays, as
+  ``np.asarray`` of the JAX tree gives, or tensors) into a model;
+* :func:`to_reference` turns a model's parameters back into that tree.
+
+Sharding logical axes are kept in the definitions for parity and unused:
+the port runs on one card (meshes are a later slice).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class ParamDef:
+    shape: tuple
+    logical: tuple              # logical axis name (or None) per dim
+    init: str = "normal"        # normal | zeros | ones | embed
+    scale: float = 0.0          # 0 -> 1/sqrt(fan_in)
+
+    def fan_in(self) -> int:
+        return (int(np.prod(self.shape[:-1])) if len(self.shape) > 1
+                else int(self.shape[0]))
+
+
+def flatten(tree, prefix: str = ""):
+    """``(path, leaf)`` pairs of a nested dict in sorted key order (the
+    order ``jax.tree_util`` flattens a dict in), paths joined by ``/``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from flatten(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def count(defs) -> int:
+    return int(sum(np.prod(d.shape) for _, d in flatten(defs)))
+
+
+def init_params(defs, generator: torch.Generator, dtype, device) -> dict:
+    """A reference-layout tree of tensors on ``device`` in ``dtype``.
+
+    Normal draws are f32 from ``generator`` (which must live on
+    ``device``'s type), scaled, then cast, as the reference does with its
+    PRNG key; the values differ from ``jax.random``'s."""
+    dtype = torch_dtype(dtype)
+
+    def mk(d: ParamDef):
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dtype, device=device)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dtype, device=device)
+        scale = d.scale or 1.0 / math.sqrt(max(d.fan_in(), 1))
+        if d.init == "embed":
+            scale = 0.02  # safe for tied input/output embeddings
+        x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return x.mul_(scale).to(dtype)
+
+    out: dict = {}
+    for path, d in flatten(defs):
+        node = out
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = mk(d)
+    return out
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a config's name for it (``"bfloat16"``) or
+    itself."""
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
+def _tensor(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else torch.tensor(np.asarray(a))
+
+
+def unstack(tree: dict) -> dict[str, torch.Tensor]:
+    """Reference tree -> ``{module parameter name: tensor}``: each stacked
+    ``layers/<name>`` array becomes ``layers.<i>.<name>``."""
+    flat = {}
+    for path, leaf in flatten(tree):
+        parts = path.split("/")
+        t = _tensor(leaf)
+        if parts[0] == "layers":
+            for i in range(t.shape[0]):
+                flat[".".join(["layers", str(i), *parts[1:]])] = t[i]
+        else:
+            flat[".".join(parts)] = t
+    return flat
+
+
+def stack(named: dict[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`unstack`: ``{name: tensor}`` -> reference tree,
+    the per-layer tensors stacked along a new axis 0."""
+    tree: dict = {}
+    per_layer: dict[str, dict[int, torch.Tensor]] = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            per_layer.setdefault(".".join(parts[2:]), {})[int(parts[1])] = t
+            continue
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = t
+    if per_layer:
+        layers = tree.setdefault("layers", {})
+        for name, by_index in per_layer.items():
+            layers[name] = torch.stack([by_index[i]
+                                        for i in sorted(by_index)])
+    return tree
+
+
+@torch.no_grad()
+def from_reference(model: torch.nn.Module, tree: dict) -> torch.nn.Module:
+    """Load a reference-layout tree into ``model``'s parameters, in place.
+
+    Each parameter takes the tree's values and dtype and stays on the
+    model's device.  Raises unless the tree's names and shapes are exactly
+    the model's."""
+    flat = unstack(tree)
+    params = dict(model.named_parameters())
+    if set(flat) != set(params):
+        raise ValueError(f"reference tree and model differ: missing "
+                         f"{sorted(set(params) - set(flat))[:5]}, extra "
+                         f"{sorted(set(flat) - set(params))[:5]}")
+    for name, p in params.items():
+        src = flat[name]
+        if tuple(src.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: reference shape {tuple(src.shape)}, "
+                             f"model shape {tuple(p.shape)}")
+        p.data = src.to(device=p.device).clone()
+    return model
+
+
+@torch.no_grad()
+def to_reference(model: torch.nn.Module) -> dict:
+    """The model's parameters as a reference-layout tree of CPU tensors."""
+    return stack({n: p.detach().cpu()
+                  for n, p in model.named_parameters()})

@@ -1,0 +1,197 @@
+"""Training loop: gradient accumulation, straggler watchdog, checkpoint
+and profiler hooks.
+
+Port of :mod:`repro.train.loop`.  PyTorch runs eagerly, so the step is a
+plain function (the reference jits it).  It updates the model's
+parameters and the optimizer state in place, tensor by tensor; the
+reference returns new trees.  So the Trainer retries only the forward and
+backward pass, which change nothing, and runs the update once: an update
+that fails partway raises, since running it again would apply the step
+twice to the tensors it had already written.
+
+The mesh and sharding-rule arguments are not ported (``ROADMAP.md`` §1,
+mesh).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.models import params as P
+from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                         init_opt_state)
+
+
+@dataclass
+class TrainerConfig:
+    steps: int = 100
+    microbatches: int = 1
+    log_every: int = 10
+    ckpt_every: int = 50
+    deadline_s: float = 0.0      # 0 = watchdog off
+    max_retries: int = 1
+
+
+def value_and_grad(model, batch: dict) -> tuple[torch.Tensor, dict]:
+    """The loss of ``batch`` and its gradient for each named parameter."""
+    named = dict(model.named_parameters())
+    loss = model.loss_fn(batch)
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return loss.detach(), dict(zip(named, grads))
+
+
+def make_grad_fn(model, *, microbatches: int = 1,
+                 accum_dtype=torch.float32):
+    """``grad_fn(batch) -> (loss, grads)``, changing nothing.
+
+    With ``microbatches > 1`` the batch is split along its first axis and
+    the gradients accumulate in ``accum_dtype``, then are divided by the
+    count, as the reference's scan does.
+    """
+
+    def grad_fn(batch: dict) -> tuple[torch.Tensor, dict]:
+        if microbatches == 1:
+            return value_and_grad(model, batch)
+        parts = {k: v.chunk(microbatches) for k, v in batch.items()}
+        loss = torch.zeros((), device=batch["tokens"].device)
+        acc = None
+        for i in range(microbatches):
+            l, g = value_and_grad(model, {k: v[i] for k, v in parts.items()})
+            loss = loss + l
+            if acc is None:
+                acc = {n: t.to(accum_dtype) for n, t in g.items()}
+            else:
+                for n, t in g.items():
+                    acc[n] += t
+        return loss / microbatches, {n: t / microbatches
+                                     for n, t in acc.items()}
+
+    return grad_fn
+
+
+def apply_update(model, opt_state: dict, loss: torch.Tensor, grads: dict,
+                 opt_cfg: AdamWConfig) -> dict:
+    """AdamW on ``model``'s parameters and ``opt_state``, in place; returns
+    the step's metrics."""
+    metrics = adamw_update(dict(model.named_parameters()), grads, opt_state,
+                           opt_cfg)
+    metrics["loss"] = loss
+    return metrics
+
+
+def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
+                    accum_dtype=torch.float32):
+    """``train_step(opt_state, batch) -> metrics``: loss -> grads -> AdamW,
+    on ``model``'s parameters in place (:func:`make_grad_fn`, then
+    :func:`apply_update`)."""
+    grad_fn = make_grad_fn(model, microbatches=microbatches,
+                           accum_dtype=accum_dtype)
+
+    def train_step(opt_state: dict, batch: dict) -> dict:
+        loss, grads = grad_fn(batch)
+        return apply_update(model, opt_state, loss, grads, opt_cfg)
+
+    return train_step
+
+
+class Trainer:
+    """Drives the step over a pipeline with fault-tolerance hooks."""
+
+    def __init__(self, model, opt_cfg: AdamWConfig, tcfg: TrainerConfig,
+                 pipeline, *, ckpt=None, profiler=None):
+        self.model = model
+        self.opt_cfg = opt_cfg
+        self.tcfg = tcfg
+        self.pipeline = pipeline
+        self.ckpt = ckpt
+        self.profiler = profiler
+        self.device = next(model.parameters()).device
+        self.grad_fn = make_grad_fn(model, microbatches=tcfg.microbatches)
+        self.straggler_events: list[dict] = []
+        self.history: list[dict] = []
+
+    def init_state(self, generator: torch.Generator, dtype=None) -> dict:
+        """Initialise the model's parameters from ``generator`` (in
+        ``dtype``, default the model's) and return fresh optimizer state."""
+        dtype = dtype or next(self.model.parameters()).dtype
+        P.from_reference(self.model, P.init_params(
+            self.model.param_defs(), generator, dtype, self.device))
+        return init_opt_state(dict(self.model.named_parameters()))
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self, opt_state: dict, *, start_step: int = 0,
+            steps: int | None = None) -> dict:
+        steps = steps if steps is not None else self.tcfg.steps
+        for step in range(start_step, start_step + steps):
+            t_data = time.perf_counter()
+            batch = {"tokens": torch.from_numpy(
+                self.pipeline.batch_at(step)).to(self.device)}
+            data_wait = time.perf_counter() - t_data
+
+            self._sync()
+            t0 = time.perf_counter()
+            tries = 0
+            while True:
+                try:
+                    loss, grads = self.grad_fn(batch)
+                    self._sync()
+                    break
+                except Exception:
+                    tries += 1
+                    if tries > self.tcfg.max_retries:
+                        raise
+            # writes in place: once, never retried
+            metrics = apply_update(self.model, opt_state, loss, grads,
+                                   self.opt_cfg)
+            del grads
+            self._sync()
+            dt = time.perf_counter() - t0
+
+            if self.tcfg.deadline_s and dt > self.tcfg.deadline_s:
+                # straggler mitigation: record, ask the pipeline to rebalance
+                self.straggler_events.append({"step": step, "dt": dt})
+                if hasattr(self.pipeline, "delay_s"):
+                    self.pipeline.delay_s = 0.0  # drop the slow path
+
+            rec = {"step": step, "loss": float(metrics["loss"]),
+                   "grad_norm": float(metrics["grad_norm"]),
+                   "step_time": dt, "data_wait": data_wait}
+            self.history.append(rec)
+            if self.profiler is not None:
+                self.profiler.on_step(rec)
+            if self.ckpt is not None and (step + 1) % self.tcfg.ckpt_every == 0:
+                self.ckpt.save(step + 1,
+                               self.checkpoint_state(opt_state, step + 1))
+        if self.ckpt is not None:
+            self.ckpt.wait()
+        return opt_state
+
+    def checkpoint_state(self, opt_state: dict, data_step: int) -> dict:
+        """The reference's checkpoint tree: stacked parameters and moments,
+        the optimizer step as an int32 scalar, the data cursor."""
+        return {"params": P.to_reference(self.model),
+                "opt": {"m": P.stack(opt_state["m"]),
+                        "v": P.stack(opt_state["v"]),
+                        "step": np.int32(opt_state["step"])},
+                "data": {"step": np.int64(data_step)}}
+
+    def load_checkpoint(self, state: dict) -> dict:
+        """Load a restored checkpoint tree (either package's) into the model
+        and return its optimizer state."""
+        P.from_reference(self.model, state["params"])
+        names = dict(self.model.named_parameters())
+
+        def moments(tree):
+            flat = P.unstack(tree)
+            return {n: flat[n].to(self.device, torch.float32).clone()
+                    for n in names}
+
+        return {"m": moments(state["opt"]["m"]),
+                "v": moments(state["opt"]["v"]),
+                "step": int(np.asarray(state["opt"]["step"]))}

@@ -203,8 +203,9 @@ def test_reference_database_opens_port_output(tmp_path, workloads):
 
 def test_import_loads_neither_jax_nor_repro():
     code = ("import json, sys\n"
-            "import repro_torch.launch.analyze\n"
+            "import repro_torch.launch.analyze, repro_torch.launch.train\n"
             "import repro_torch.data.synth, repro_torch.kernels.batch\n"
+            "import repro_torch.train.compression\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
             "             or m.startswith(('jax.', 'repro.')))\n"
             "print(json.dumps(bad))\n")

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain version,
-the wrapper's argument checks, column determinism, and analyze end to end
-against the numpy path.  Every test needs a card and is marked ``cuda``;
+the wrapper's argument checks, column determinism, analyze end to end
+against the numpy path, and a full-width training step.  Every test needs a card and is marked ``cuda``;
 without one they skip.  On a host with a card::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import _build, batch, ops
 from repro_torch.kernels import blockscan as bs
+from repro_torch.kernels import int8_quant as q8
 from repro_torch.kernels import scatter_add as sc
 from repro_torch.kernels import segstats as ss
 
@@ -170,3 +171,77 @@ def test_analyze_on_card_bit_deterministic_across_executors(dev, tmp_path):
             AggregationConfig(executor=executor, n_workers=workers)).run(paths)
         digests.add((_digest(res.pms_path), _digest(res.cms_path)))
     assert len(digests) == 1
+
+
+def _assert_bits_equal(got, want):
+    """Bit equality, except that a NaN's payload is not compared: the FMA
+    on the card and the f64 residual of the plain version give NaNs of
+    different bits, at the same places."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.float32:
+            nan = torch.isnan(g)
+            assert torch.equal(nan, torch.isnan(w))
+            g, w = g.view(torch.int32)[~nan], w.view(torch.int32)[~nan]
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,block_n", [(1, 128), (1000, 1024), (2047, 2048),
+                                       (2049, 2048), (5000, 2048),
+                                       (65536, 2048), (1 << 22, 2048),
+                                       (3001, 102)])
+def test_int8_quant_kernel_bit_equal_to_plain(dev, rng, n, block_n):
+    """Ragged n (the kernel pads its last block itself), an all-zero block,
+    and a block size that is no multiple of 4 (the scalar path)."""
+    x = (rng.normal(size=n) * 10.0 ** rng.uniform(-4, 3)).astype(np.float32)
+    if n >= 3 * block_n:
+        x[block_n:2 * block_n] = 0.0
+    xt = _on(dev, x)
+    _assert_bits_equal(q8.int8_quant(xt, block_n),
+                       q8.int8_quant_plain(xt, block_n))
+
+
+def test_int8_quant_kernel_nan_inf_and_unaligned(dev, rng):
+    """A NaN block (scale 1 and q 0 at the NaN, on both sides), an inf block,
+    and an input 4 bytes off 16-byte alignment (the scalar path)."""
+    x = rng.normal(size=3 * 2048 + 1).astype(np.float32)
+    x[7], x[2048 + 9] = np.nan, np.inf
+    xt = _on(dev, x)
+    got = ops.int8_quant(xt[:-1])
+    _assert_bits_equal(got, q8.int8_quant_plain(xt[:-1], 2048))
+    assert float(got[1][0]) == 1.0 and int(got[0][7]) == 0
+    off = xt[1:]
+    assert off.data_ptr() % 16 == 4
+    _assert_bits_equal(q8.int8_quant(off), q8.int8_quant_plain(off))
+
+
+def test_int8_quant_wrapper_checks_and_counts(dev):
+    before = _build.launch_counts.snapshot().get("int8_quant", 0)
+    q8.int8_quant(torch.ones(4096, device=dev))
+    assert _build.launch_counts.snapshot()["int8_quant"] == before + 1
+    with pytest.raises(TypeError):
+        q8.int8_quant(torch.ones(8, dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        q8.int8_quant(torch.ones(8, 2, device=dev)[:, 0])
+
+
+def test_full_width_train_step_on_card(dev):
+    """qwen3-0.6b at full width (596,049,920 bf16 parameters, f32 moments):
+    two steps at batch 2 x 128 give finite losses and move the weights."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = get_arch("qwen3-0.6b")
+    model = build_model(cfg, device=dev)
+    assert sum(p.numel() for p in model.parameters()) == 596_049_920
+    tr = Trainer(model, AdamWConfig(warmup_steps=1),
+                 TrainerConfig(steps=2), TokenPipeline(cfg.vocab_size, 128, 2))
+    opt = tr.init_state(torch.Generator(device=dev).manual_seed(0))
+    before = model.layers[0].wq.detach().clone()
+    tr.run(opt)
+    assert all(np.isfinite(h["loss"]) for h in tr.history)
+    assert not torch.equal(before, model.layers[0].wq)
+    assert model.embed.dtype == torch.bfloat16
+    assert opt["m"]["embed"].dtype == torch.float32

@@ -13,6 +13,7 @@ from repro.kernels import ops as rops
 from repro.kernels import ref as rref
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import blockscan as bs
+from repro_torch.kernels import int8_quant as q8
 from repro_torch.kernels import scatter_add as sc
 from repro_torch.kernels import segstats as ss
 
@@ -193,6 +194,88 @@ def test_histogram_drops_sentinels_and_counts_past_f32():
 
 
 # ---------------------------------------------------------------------------
+# int8_quant
+# ---------------------------------------------------------------------------
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.uint32) if a.dtype == np.float32 else a
+
+
+@pytest.mark.parametrize("n", [1, 100, 1000, 2047, 2048, 2049, 5000, 65536])
+def test_int8_quant_plain_bit_equal_to_pallas(rng, n):
+    """q, scales and err bit-equal to the reference's Pallas kernel in
+    interpret mode, through both wrappers' block clamps and padding; the
+    second block is all zero where n allows one."""
+    x = (rng.normal(size=n) * 10.0 ** rng.uniform(-4, 3)).astype(np.float32)
+    if n >= 4096:
+        x[2048:4096] = 0.0
+    got = ops.int8_quant(_t(x))
+    want = rops.int8_quant(jnp.asarray(x))
+    assert [g.dtype for g in got] == [torch.int8, torch.float32,
+                                      torch.float32]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert_array_equal(_bits(g.numpy()), _bits(w))
+
+
+def test_int8_quant_all_zero_block_has_unit_scale():
+    x = np.zeros(4096, np.float32)
+    x[2048:] = np.linspace(-3, 5, 2048, dtype=np.float32)
+    q, s, e = ops.int8_quant(_t(x))
+    rq, rs, re = rops.int8_quant(jnp.asarray(x))
+    assert s[0] == 1.0 and not q[:2048].any() and not e[:2048].any()
+    assert_array_equal(_bits(s.numpy()), _bits(rs))
+    assert_array_equal(q.numpy(), np.asarray(rq))
+    assert_array_equal(_bits(e.numpy()), _bits(re))
+
+
+def test_int8_quant_nan_and_inf_blocks_match_pallas():
+    """A NaN gives its block scale 1 and q 0 there; an inf block's
+    residuals are NaN: the reference's behaviour, kept bit for bit."""
+    x = np.random.default_rng(9).normal(size=6144).astype(np.float32)
+    x[5], x[3000] = np.nan, np.inf
+    got = ops.int8_quant(_t(x))
+    want = rops.int8_quant(jnp.asarray(x))
+    for g, w in zip(got, want):
+        assert_array_equal(_bits(g.numpy()), _bits(w))
+    assert float(got[1][0]) == 1.0 and int(got[0][5]) == 0
+
+
+@pytest.mark.parametrize("n", [100, 2049, 65536])
+def test_int8_dequant_round_trips(rng, n):
+    x = rng.normal(size=n).astype(np.float32)
+    q, s, e = ops.int8_quant(_t(x))
+    deq = ops.int8_dequant(q, s, n)
+    assert_array_equal(_bits(deq.numpy()),
+                       _bits(rops.int8_dequant(*map(jnp.asarray, (
+                           q.numpy(), s.numpy())), n)))
+    assert_allclose((deq + e).numpy(), x, rtol=1e-6, atol=1e-7)
+
+
+def test_int8_dequant_capacity_mismatch_raises_like_reference():
+    q = np.zeros(5000, np.int8)
+    s = np.ones(2, np.float32)
+    with pytest.raises(ValueError) as want:
+        rops.int8_dequant(jnp.asarray(q), jnp.asarray(s), 5000)
+    with pytest.raises(ValueError) as got:
+        ops.int8_dequant(_t(q), _t(s), 5000)
+    assert str(got.value) == str(want.value)
+
+
+def test_int8_quant_module_takes_ragged_lengths_and_any_block():
+    """The kernel module pads a ragged last block with zeros itself."""
+    x = torch.arange(1, 11, dtype=torch.float32)
+    q, s, e = q8.int8_quant(x, 4)
+    assert q.shape == (10,) and s.shape == (3,) and e.shape == (10,)
+    assert_array_equal(s.numpy(), np.float32([4, 8, 10]) * np.float32(
+        q8.INV_127))
+    assert q8.INV_127 == float(np.float32(1 / 127))
+    with pytest.raises(ValueError, match="block_n"):
+        q8.int8_quant(x, 0)
+
+
+# ---------------------------------------------------------------------------
 # wrapper rules that hold without a card
 # ---------------------------------------------------------------------------
 
@@ -203,6 +286,7 @@ def test_histogram_drops_sentinels_and_counts_past_f32():
     lambda: sc.scatter_add_cuda(torch.zeros(4, dtype=torch.int64),
                                 torch.zeros(4), 2),
     lambda: sc.histogram_cuda(torch.zeros(4, dtype=torch.int64), 2),
+    lambda: q8.int8_quant_cuda(torch.zeros(4)),
 ])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
@@ -272,4 +356,5 @@ def test_plain_versions_do_not_count_launches(rng):
     ss.segstats(_t(np.zeros(4, np.int32)), _t(np.ones(4, np.float32)), 1)
     bs.blockscan(_t(np.ones(4, np.float32)))
     ops.histogram(_t(np.zeros(4, np.int64)), 1)
+    ops.int8_quant(_t(np.ones(4, np.float32)))
     assert _build.launch_counts.snapshot() == before
