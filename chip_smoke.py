@@ -20,7 +20,13 @@ read just after:
 3. ``exact_parity`` — an integer-valued workload of the same shape through
    both computes: ``db.pms``, ``db.cms`` and ``db.trc`` byte-identical.
 4. ``determinism`` — one inclusive column scanned alone and inside the
-   main path's batch gives bitwise-equal results.
+   main path's batch gives bitwise-equal results, and 10 launches of
+   ``blockscan`` on each of the main path's scan inputs give equal bits.
+   ``combine_repeats`` — the integer workload's 48 profiles through
+   ``fused_transform`` with a CUDA ``DeviceAggregator`` on a unified tree
+   of the main path's context count, remapped many to one with placeholder
+   routes so that ``segstats`` combines runs longer than one: exact-class
+   planes byte-equal to the numpy path, the others within tolerance.
 5. ``train`` — ``repro_torch.launch.train --arch qwen3-0.6b`` at full width
    (28 layers, 596,049,920 bf16 parameters, f32 moments), 5 steps at
    batch 8 x 128, with a profile and a checkpoint: step times, tokens/s,
@@ -39,9 +45,11 @@ read just after:
    blocks of 2048) through 3 rounds of ``int8_compress`` error feedback on
    the ``int8_quant`` kernel; each round bit-equal to the plain version.
 10. ``kernels`` — each kernel on the inputs its path gave it, against its
-    plain PyTorch version on the card, with its time, the plain version's,
-    one library call's where there is one, and the least time the card
-    could take.
+    plain PyTorch version on the card, with its call time (``call_ms``,
+    CUDA events over back-to-back calls) and device time (``device_ms``,
+    ``torch.profiler``'s kernel durations per call), the plain version's
+    time, the same two for one library call where there is one, and the
+    least time the card could take.
 
 Every line before the last is one JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero without
@@ -140,29 +148,39 @@ class Recorder:
         return self.calls[key][1]
 
 
+def _plane_diff(pa, pb) -> tuple[float, float, int]:
+    """Max |a - b| over the common (ctx, metric) keys of two planes, the
+    largest value present on one side only, and the count of common keys
+    outside ATOL/RTOL."""
+    import numpy as np
+    ra, ma, va = pa.triplets()
+    rb, mb, vb = pb.triplets()
+    ka = (ra.astype(np.int64) << 16) | ma.astype(np.int64)
+    kb = (rb.astype(np.int64) << 16) | mb.astype(np.int64)
+    _, ia, ib = np.intersect1d(ka, kb, assume_unique=True,
+                               return_indices=True)
+    d = np.abs(va[ia] - vb[ib])
+    only = np.concatenate([np.delete(va, ia), np.delete(vb, ib)])
+    return (float(d.max()) if d.size else 0.0,
+            float(np.abs(only).max()) if only.size else 0.0,
+            int(np.sum(d > ATOL + RTOL * np.abs(vb[ib]))))
+
+
 def plane_agreement(pms_a, pms_b) -> dict:
     """Max |a - b| over common (ctx, metric) keys of every plane, and the
     largest value present on one side only; checked against ATOL/RTOL."""
-    import numpy as np
     worst, lone, bad = 0.0, 0.0, 0
     for pid in range(pms_a.n_profiles):
-        ra, ma, va = pms_a.plane(pid).triplets()
-        rb, mb, vb = pms_b.plane(pid).triplets()
-        ka = (ra.astype(np.int64) << 16) | ma.astype(np.int64)
-        kb = (rb.astype(np.int64) << 16) | mb.astype(np.int64)
-        _, ia, ib = np.intersect1d(ka, kb, assume_unique=True,
-                                   return_indices=True)
-        d = np.abs(va[ia] - vb[ib])
-        bad += int(np.sum(d > ATOL + RTOL * np.abs(vb[ib])))
-        worst = max(worst, float(d.max()) if d.size else 0.0)
-        only = np.concatenate([np.delete(va, ia), np.delete(vb, ib)])
-        lone = max(lone, float(np.abs(only).max()) if only.size else 0.0)
+        w, o, b = _plane_diff(pms_a.plane(pid), pms_b.plane(pid))
+        worst, lone, bad = max(worst, w), max(lone, o), bad + b
     return {"max_abs_err": worst, "max_one_sided": lone, "violations": bad,
             "ok": bad == 0 and lone < ATOL}
 
 
 def time_ms(fn, iters: int = 20) -> float:
-    """Mean device milliseconds per call, by CUDA events, after a warm-up."""
+    """Mean milliseconds per call of back-to-back calls, by CUDA events
+    after a warm-up: the call time, which is the host's time per call when
+    that exceeds the device's."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -174,6 +192,42 @@ def time_ms(fn, iters: int = 20) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, iters: int = 20) -> float | None:
+    """Mean device milliseconds per call: the durations of the CUDA kernels
+    (and copies) that ``torch.profiler`` records, summed and divided by the
+    calls it recorded, each call marked with ``record_function``; None when
+    it records no device time.  The profile runs a warm-up cycle and an
+    active one of ``iters`` calls each: without the warm-up the tracer can
+    miss the first launches after it starts."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
+    fn()
+    torch.cuda.synchronize()
+    cycles = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: cycles.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                with record_function("smoke_call"):
+                    fn()
+            torch.cuda.synchronize()
+            prof.step()
+    require(len(cycles) == 1, f"the profiler gave {len(cycles)} cycles")
+    calls = sum(e.count for e in cycles[0] if e.key == "smoke_call")
+    us = sum(_dev_us(e) for e in cycles[0]
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    require(calls >= iters, f"the profiler recorded {calls} of the calls")
+    return us / 1e3 / calls if us > 0 else None
 
 
 def bound(nbytes: int, nops: int) -> tuple[float, str]:
@@ -206,19 +260,122 @@ def kernel_entry(name, source, replaces, launches, kernel, plain, library,
                     f"{name}: kernel and plain version differ in bits")
     tol = 0.0 if exact else RTOL * max(1.0, scale)
     require(err <= tol, f"{name}: max_abs_err {err} > tolerance {tol}")
-    ms = time_ms(kernel)
+    call_ms = time_ms(kernel)
+    lib_call_ms = time_ms(library) if library else None
     bound_ms, bound_by = bound(nbytes, nops)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "on_path": on_path, "launches": launches,
-            "max_abs_err": err, "tolerance": tol, "ms": ms, "kernel_ms": ms,
-            "plain_ms": time_ms(plain),
-            "library_ms": time_ms(library) if library else None,
+            "max_abs_err": err, "tolerance": tol, "ms": call_ms,
+            "call_ms": call_ms, "device_ms": device_ms(kernel),
+            "plain_ms": time_ms(plain), "library_ms": lib_call_ms,
+            "library_call_ms": lib_call_ms,
+            "library_device_ms": device_ms(library) if library else None,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _bits(t):
     import torch
     return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def combine_repeats_phase(ipaths, n_ctx: int, device: str = "cuda") -> dict:
+    """The duplicate-key combine at full size: each integer STANDARD
+    profile's values (1..8) through ``fused_transform`` with a
+    ``DeviceAggregator`` on ``device`` and through the numpy path, on a
+    unified tree of ``n_ctx`` contexts.  Each profile's contexts map many to
+    one onto an eighth as many unified contexts (as
+    ``tests/test_torch_batch.py``'s generator remaps them), so keys repeat,
+    and three placeholder routes are added.  Even profiles route each
+    placeholder to one leaf, which keeps their values integers: "exact"
+    planes, byte-equal to numpy.  Odd profiles route to 1-3 leaves with
+    random weights: "f32" planes, held within ATOL/RTOL.  The ``segstats``
+    calls are counted by run length."""
+    import numpy as np
+    import torch
+    from repro_torch.core.pipeline import fused_transform
+    from repro_torch.core.sparse import MeasurementProfile
+    from repro_torch.data import synth
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import batch as kb
+    from repro_torch.kernels import segstats as ss
+    rng = np.random.default_rng(SEED_INT)
+    t0 = time.perf_counter()
+    tree = synth.build_app_tree(n_ctx, rng)
+    pos, _, end = tree.preorder()
+    parent_pre = np.full(n_ctx, -1, np.int64)
+    parent_pre[pos[1:]] = pos[tree.parent_array()[1:]]
+    build_s = time.perf_counter() - t0
+    agg = kb.DeviceAggregator(end, device=device)
+
+    runs = {"calls": 0, "longer_than_one": 0, "longest": 0}
+    orig = ss.segstats
+
+    def counted(ids, vals, n_seg):
+        _, counts = torch.unique_consecutive(ids, return_counts=True)
+        runs["calls"] += 1
+        runs["longer_than_one"] += int((counts > 1).sum())
+        runs["longest"] = max(runs["longest"], int(counts.max()))
+        return orig(ids, vals, n_seg)
+
+    exact_equal, n_exact, values = True, 0, 0
+    worst, lone, bad = 0.0, 0.0, 0
+    ss.segstats = counted
+    _build.launch_counts.reset()
+    t0 = time.perf_counter()
+    try:
+        for pid, path in enumerate(ipaths):
+            prof = MeasurementProfile.load(path)
+            n_local = len(prof.tree)
+            targets = rng.choice(n_ctx, size=max(1, n_local // 8),
+                                 replace=False)
+            remap = targets[rng.integers(0, targets.size, n_local)]
+            routes = {}
+            for ph in rng.choice(targets, size=3, replace=False):
+                k = 1 if pid % 2 == 0 else int(rng.integers(1, 4))
+                routes[int(ph)] = (rng.integers(0, n_ctx, k).astype(np.int64),
+                                   rng.uniform(0.1, 2.0, k))
+            vals = prof.metrics.triplets()[2]
+            values += vals.size
+            got = fused_transform(prof.metrics, remap, routes, parent_pre,
+                                  end, device=agg)
+            want = fused_transform(prof.metrics, remap, routes, parent_pre,
+                                   end)
+            if pid % 2 == 0:
+                require(kb.classify_plane(vals) == "exact",
+                        f"profile {pid}: plane is not exact-class")
+                n_exact += 1
+                exact_equal &= got.encode() == want.encode()
+            else:
+                w, o, b = _plane_diff(got, want)
+                worst, lone, bad = max(worst, w), max(lone, o), bad + b
+    finally:
+        ss.segstats = orig
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts.snapshot()
+    out = {"profiles": len(ipaths), "contexts": n_ctx, "values": values,
+           "device": device, "tree_s": build_s, "wall_s": wall,
+           "exact_planes": n_exact, "exact_bytes_equal": exact_equal,
+           "f32_planes": len(ipaths) - n_exact, "f32_max_abs_err": worst,
+           "f32_max_one_sided": lone, "f32_violations": bad,
+           "segstats_calls": runs["calls"],
+           "segstats_runs_longer_than_one": runs["longer_than_one"],
+           "segstats_longest_run": runs["longest"], "launches": counts}
+    require(exact_equal, f"exact planes differ from numpy: {out}")
+    require(bad == 0 and lone < ATOL, f"f32 planes disagree: {out}")
+    require(runs["longer_than_one"] > 0,
+            f"segstats combined no run longer than one: {out}")
+    if device == "cuda":
+        require(counts.get("segstats", 0) == len(ipaths),
+                f"segstats launched {counts.get('segstats', 0)} times for "
+                f"{len(ipaths)} profiles")
+    return out
+
+
+def repeated_launches(fn, times: int = 10) -> bool:
+    """``fn`` run ``times`` times gives the same bits each time."""
+    import torch
+    first = _bits(fn())
+    return all(torch.equal(_bits(fn()), first) for _ in range(times - 1))
 
 
 def run_train(train, argv):
@@ -370,26 +527,21 @@ def train_trace_phase(tr, opt, median_step_s: float):
         tr.run(opt, start_step=TRAIN_STEPS, steps=1)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    device_ms = sum(dev_us(e) for e in kernels) / 1e3
+    busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
     step_ms = tr.history[-1]["step_time"] * 1e3
     median_ms = median_step_s * 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    require(device_ms > 0, "torch.profiler saw no device time")
+    top = sorted(kernels, key=_dev_us, reverse=True)[:10]
+    require(busy_ms > 0, "torch.profiler saw no device time")
     out = {"step": TRAIN_STEPS, "step_ms_profiled": step_ms,
-           "device_ms": device_ms,
+           "device_ms": busy_ms,
            "kernel_launches": sum(e.count for e in kernels),
            # device time over the wall time of the same profiled step
-           "idle_share": 1.0 - device_ms / step_ms,
+           "idle_share": 1.0 - busy_ms / step_ms,
            # the same device time over the train phase's median step
            "median_step_ms_unprofiled": median_ms,
-           "idle_share_vs_median_step": 1.0 - device_ms / median_ms,
+           "idle_share_vs_median_step": 1.0 - busy_ms / median_ms,
            "top_kernels": [{"name": e.key[:80], "count": e.count,
-                            "ms": dev_us(e) / 1e3} for e in top]}
+                            "ms": _dev_us(e) / 1e3} for e in top]}
     tokens = torch.from_numpy(tr.pipeline.batch_at(0)).cuda()
     _, grads = value_and_grad(tr.model, {"tokens": tokens})
     g = torch.cat([t.float().reshape(-1) for t in grads.values()])
@@ -578,10 +730,22 @@ def main() -> int:
         scan_batch = bs.blockscan_cuda(xb)[:, j:j + 1]
         det = {"rows": xb.shape[0], "batch_columns": xb.shape[1], "column": j,
                "inclusive_equal": bool(torch.equal(alone, batch)),
-               "scan_equal": bool(torch.equal(scan_alone, scan_batch))}
+               "scan_equal": bool(torch.equal(scan_alone, scan_batch)),
+               "repeat_launches": 10,
+               "blockscan_f32_repeats_equal": repeated_launches(
+                   lambda: bs.blockscan_cuda(xf)),
+               "blockscan_i64_repeats_equal": repeated_launches(
+                   lambda: bs.blockscan_cuda(xi))}
         emit({"determinism": det})
         require(det["inclusive_equal"] and det["scan_equal"],
                 f"a column's result depends on its batch: {det}")
+        require(det["blockscan_f32_repeats_equal"]
+                and det["blockscan_i64_repeats_equal"],
+                f"repeated blockscan launches differ: {det}")
+
+        # -- the combine on repeated keys at full size, against numpy
+        emit({"combine_repeats": combine_repeats_phase(
+            ipaths, dev_sum["contexts"])})
 
         # -- 5.-9. the training path, then compression on its gradient
         out, rprf, ckpt, tr, opt = train_phase(train, work)

@@ -12,7 +12,9 @@ between the two packages in both directions.
 * **bf16**: numpy has no bfloat16, so a bf16 tensor is stored losslessly
   as its uint16 bit pattern and ``meta.json`` records its key under
   ``"dtypes"``; :meth:`restore` gives it back bit-equal.  A reference
-  checkpoint has no ``"dtypes"`` and restores as written.
+  checkpoint has no ``"dtypes"``: its bf16 arrays read back from the
+  ``.npz`` as 2-byte void (``|V2``) and restore as bf16 bits, the rest
+  as written.  The reference reads the port's bf16 as uint16 integers.
 
 Leaves may be tensors (on any device), numpy arrays or numpy scalars;
 :meth:`restore` returns a tree of CPU tensors.
@@ -74,7 +76,7 @@ def _to_host(v) -> tuple[np.ndarray, str | None]:
 
 
 def _from_host(a: np.ndarray, dtype: str | None) -> torch.Tensor:
-    if dtype == "bfloat16":
+    if dtype == "bfloat16" or (a.dtype.kind == "V" and a.itemsize == 2):
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
 

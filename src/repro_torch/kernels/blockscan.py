@@ -6,14 +6,22 @@ int64, scanned down each column, in the input's type.  f32 input is
 accumulated in f64 and each prefix rounded once to f32, so every prefix is
 within half an ulp and a difference of two prefixes over an all-zero run
 is exactly 0.  A column's result depends only on that
-column and on N, never on the other columns of the launch (see
-``csrc/blockscan.cu``), which is what keeps batched f32 planes
+column and on N, never on the other columns of the launch or on timing
+(see ``csrc/blockscan.cu``), which is what keeps batched f32 planes
 bit-identical however the funnel groups them.
 
 :func:`blockscan` launches the hand-written CUDA kernel on CUDA tensors and
-runs :func:`blockscan_plain` on CPU tensors.
+runs :func:`blockscan_plain` on CPU tensors.  The kernel is one launch; it
+keeps its ticket and its published totals in a buffer per (card, stream)
+that is zeroed once when allocated and never reset (calls are told their
+number on it instead), so a call makes one ctypes call and allocates only
+its output.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+import threading
 
 import torch
 
@@ -21,9 +29,33 @@ from repro_torch.kernels import _build
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
            torch.int32: "i32", torch.int64: "i64"}
+_DTYPES = tuple(_SUFFIX)
 # the type the sums are carried in (the input's own, except f32)
 _ACC = {torch.float32: torch.float64}
-_MAX_COLS = 65535 * 32  # the kernel's grid.y limit times its 32-column tile
+_ERRORS = {-1: "scratch too small for the shape",
+           -2: "more tiles than one grid may hold"}
+
+_layout: tuple | None = None      # blockscan_layout(), read once a process
+_fns: dict = {}                   # dtype -> the launcher, its C signature set
+
+
+class _Scratch:
+    """The kernel's scratch on one stream (``csrc/blockscan.cu``): the
+    ticket counter and the 16-byte records of published totals, zeroed
+    once.  Calls are numbered (``tag``) and their blocks, one ticket each,
+    counted (``base``) in the order they are enqueued on the stream, under
+    ``lock``."""
+
+    def __init__(self, words: int, device):
+        self.buf = torch.zeros(words, dtype=torch.int64, device=device)
+        self.tag = 0
+        self.base = 0
+        self.lock = threading.Lock()
+
+
+# (device index, stream handle) -> its _Scratch
+_scratch: dict[tuple[int, int], _Scratch] = {}
+_scratch_lock = threading.Lock()
 
 
 def blockscan(x: torch.Tensor) -> torch.Tensor:
@@ -33,34 +65,93 @@ def blockscan(x: torch.Tensor) -> torch.Tensor:
     return blockscan_plain(x)
 
 
+def _constants() -> tuple:
+    """``(header words, tile columns, tile rows by element size, column
+    rows by dtype, chunks a super-chunk covers)`` from the library,
+    once."""
+    global _layout
+    if _layout is None:
+        buf = (ctypes.c_int64 * 7)()
+        _build.function("blockscan", "blockscan_layout", (_build.PTR,),
+                        None)(ctypes.addressof(buf))
+        _layout = (buf[0], buf[1], {4: buf[2], 8: buf[3]},
+                   {torch.int32: buf[4], torch.int64: buf[5]}, buf[6])
+    return _layout
+
+
+@functools.lru_cache(maxsize=256)
+def plan(n: int, m: int, dtype: torch.dtype) -> tuple[int, int]:
+    """``(blocks, scratch words)`` of a launch on (n, m) of ``dtype``: a
+    block per tile; the header, then two words a record, one record per
+    chunk and column and, for tiles, one per super-chunk and column."""
+    header, tile_cols, tile_rows, column_rows, per_super = _constants()
+    if m == 1 and dtype in column_rows:
+        chunks = -(-n // column_rows[dtype])
+        return chunks, header + 2 * chunks
+    chunks = -(-n // tile_rows[dtype.itemsize])
+    return (chunks * -(-m // tile_cols),
+            header + 2 * (chunks + chunks // per_super) * m)
+
+
+def _scratch_for(device: int, stream: int, words: int) -> _Scratch:
+    key = (device, stream)
+    sc = _scratch.get(key)
+    if sc is None or sc.buf.numel() < words:
+        with _scratch_lock:
+            sc = _scratch.get(key)
+            if sc is None or sc.buf.numel() < words:
+                old = 0 if sc is None else sc.buf.numel()
+                sc = _Scratch(max(words, 2 * old),
+                              torch.device("cuda", device))
+                _scratch[key] = sc
+    return sc
+
+
+def _launcher(dtype: torch.dtype):
+    fn = _fns.get(dtype)
+    if fn is None:
+        fn = _build.function("blockscan", f"blockscan_{_SUFFIX[dtype]}",
+                             (_build.PTR, _build.I64, _build.I64, _build.PTR,
+                              _build.I64, ctypes.c_uint64, ctypes.c_uint64,
+                              _build.PTR, _build.PTR))
+        _fns[dtype] = fn
+    return fn
+
+
 def blockscan_cuda(x: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel; ``x`` contiguous on a card, of a type in
-    ``_SUFFIX``."""
-    if not _build.on_cuda(x):
+    """The CUDA kernel: one launch; ``x`` contiguous on a card, of a type
+    in ``_SUFFIX``."""
+    if x.device.type != "cuda":
         raise ValueError("blockscan_cuda takes a CUDA tensor")
-    _build.expect(x, "blockscan input", tuple(_SUFFIX), (1, 2))
+    _build.expect(x, "blockscan input", _DTYPES, (1, 2))
+    out = torch.empty_like(x)
     n = x.shape[0]
     m = 1 if x.dim() == 1 else x.shape[1]
-    if m > _MAX_COLS:
-        raise ValueError(f"blockscan: {m} columns exceed {_MAX_COLS}")
-    suffix = _SUFFIX[x.dtype]
-    out = torch.empty_like(x)
-    chunk_rows = _build.function("blockscan", "blockscan_chunk_rows", (),
-                                 _build.I64)()
-    groups = _build.function("blockscan", "blockscan_groups", (),
-                             _build.I64)()
-    n_chunks = -(-n // chunk_rows)
-    scratch = torch.empty(n_chunks * (groups + 1) * m,
-                          dtype=_ACC.get(x.dtype, x.dtype), device=x.device)
-    fn = _build.function("blockscan", f"blockscan_{suffix}",
-                         (_build.PTR, _build.I64, _build.I64, _build.PTR,
-                          _build.PTR, _build.PTR))
-    with torch.cuda.device(x.device):
-        status = fn(x.data_ptr(), n, m, scratch.data_ptr(), out.data_ptr(),
-                    _build.stream_of(x))
-    _build.check(status, f"blockscan_{suffix}")
-    if n and m:
-        _build.launch_counts.add(f"blockscan_{suffix}")
+    if n == 0 or m == 0:
+        return out
+    fn = _launcher(x.dtype)
+    device = x.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    blocks, words = plan(n, m, x.dtype)
+    sc = _scratch_for(device, stream, words)
+    name = f"blockscan_{_SUFFIX[x.dtype]}"
+    with sc.lock:
+        args = (x.data_ptr(), n, m, sc.buf.data_ptr(), sc.buf.numel(),
+                sc.tag + 1, sc.base, out.data_ptr(), stream)
+        if device == torch._C._cuda_getDevice():
+            status = fn(*args)
+        else:
+            with torch.cuda.device(device):
+                status = fn(*args)
+        if status == 0:
+            sc.tag += 1
+            sc.base += blocks
+        else:  # whether the kernel ran is unknown: start a fresh scratch
+            _scratch.pop((device, stream), None)
+    if status < 0:
+        raise RuntimeError(f"{name}: {_ERRORS[status]} ({n} x {m})")
+    _build.check(status, name)
+    _build.launch_counts.add(name)
     return out
 
 

@@ -47,14 +47,21 @@ def make_grad_fn(model, *, microbatches: int = 1,
                  accum_dtype=torch.float32):
     """``grad_fn(batch) -> (loss, grads)``, changing nothing.
 
-    With ``microbatches > 1`` the batch is split along its first axis and
-    the gradients accumulate in ``accum_dtype``, then are divided by the
-    count, as the reference's scan does.
+    With ``microbatches > 1`` the batch is split along its first axis into
+    equal parts and the gradients accumulate in ``accum_dtype``, then are
+    divided by the count, as the reference's scan does.  A batch that
+    ``microbatches`` does not divide raises ``ValueError``, as the
+    reference's reshape refuses it.
     """
 
     def grad_fn(batch: dict) -> tuple[torch.Tensor, dict]:
         if microbatches == 1:
             return value_and_grad(model, batch)
+        for k, v in batch.items():
+            if v.shape[0] % microbatches:
+                raise ValueError(
+                    f"microbatches={microbatches} does not divide the "
+                    f"batch: {k!r} has {v.shape[0]} rows")
         parts = {k: v.chunk(microbatches) for k, v in batch.items()}
         loss = torch.zeros((), device=batch["tokens"].device)
         acc = None

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain version,
-the wrapper's argument checks, column determinism, analyze end to end
+the wrapper's argument checks, column determinism and repeated launches,
+analyze end to end
 against the numpy path, and a full-width training step.  Every test needs a card and is marked ``cuda``;
 without one they skip.  On a host with a card::
 
@@ -74,6 +75,96 @@ def test_blockscan_column_alone_equals_column_in_batch(dev, rng):
     for j in (0, 17, 39):
         assert torch.equal(bs.blockscan(x[:, j:j + 1].contiguous()),
                            full[:, j:j + 1])
+
+
+_SCAN_DTYPES = [torch.float32, torch.float64, torch.int32, torch.int64]
+
+
+def _scan_case(dev, rng, n, m, dtype):
+    shape = (n,) if m == 1 else (n, m)
+    a = (rng.normal(size=shape) if dtype.is_floating_point
+         else rng.integers(-50, 50, shape))
+    return torch.from_numpy(a).to(dtype).to(dev)
+
+
+def _scan_close(got, want):
+    """Integers exact; floats within 1e-5 of the largest prefix (both sum
+    in f64, in different orders, and f32 rounds once)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype.is_floating_point and got.numel():
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [0, 1, 1023, 1024, 1025, 196_049])
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 88, 97])
+@pytest.mark.parametrize("dtype", _SCAN_DTYPES)
+def test_blockscan_chunk_and_tile_boundaries(dev, rng, n, m, dtype):
+    """Around the kernel's 256-, 512-, 1,024- and 2,048-row chunks and its
+    32-column tiles, on both bodies (single-column integers, tiles)."""
+    x = _scan_case(dev, rng, n, m, dtype)
+    _scan_close(bs.blockscan(x), bs.blockscan_plain(x))
+
+
+@pytest.mark.parametrize("dtype", _SCAN_DTYPES)
+@pytest.mark.parametrize("m", [1, 33])
+def test_blockscan_unaligned_views(dev, rng, dtype, m):
+    """A view that starts one element into its storage is not 16-byte
+    aligned: the kernel takes its element-wise copies and stores."""
+    x = _scan_case(dev, rng, 5001, m, dtype)[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _scan_close(bs.blockscan(x), bs.blockscan_plain(x))
+
+
+def _scan_bits(t):
+    return t.view({torch.float32: torch.int32,
+                   torch.float64: torch.int64}.get(t.dtype, t.dtype))
+
+
+@pytest.mark.parametrize("dtype", _SCAN_DTYPES)
+@pytest.mark.parametrize("m", [1, 88])
+def test_blockscan_repeated_launches_bit_equal(dev, rng, dtype, m):
+    """The flags and tickets are reset by the kernel itself: 10 launches
+    on one input give the same bits."""
+    x = _scan_case(dev, rng, 196_049, m, dtype)
+    first = _scan_bits(bs.blockscan(x))
+    for _ in range(9):
+        assert torch.equal(_scan_bits(bs.blockscan(x)), first)
+
+
+def test_blockscan_interleaved_shapes_share_scratch(dev, rng):
+    """Calls of every type and body alternate on one stream's scratch: a
+    word one call used for a total (here small positive integers, the
+    values a flag takes) is never taken for another call's flag."""
+    xs = [torch.from_numpy(rng.integers(0, 3, n)).to(dev)
+          for n in (196_049, 50_000)]
+    xs += [_scan_case(dev, rng, 196_049, 88, dt) for dt in _SCAN_DTYPES]
+    xs += [_scan_case(dev, rng, 5001, 1, dt) for dt in _SCAN_DTYPES]
+    for _ in range(3):
+        for x in xs:
+            _scan_close(bs.blockscan(x), bs.blockscan_plain(x))
+
+
+def test_blockscan_column_alone_equals_batch_at_full_size(dev, rng):
+    x = _on(dev, rng.exponential(size=(196_049, 88)).astype(np.float32))
+    full = bs.blockscan(x)
+    for j in (0, 31, 32, 63, 64, 87):
+        alone = bs.blockscan(x[:, j:j + 1].contiguous())
+        assert torch.equal(_scan_bits(alone), _scan_bits(full[:, j:j + 1]))
+
+
+def test_blockscan_on_a_side_stream(dev, rng):
+    """Each stream keeps its own scratch; the result is the same."""
+    x = _scan_case(dev, rng, 196_049, 88, torch.float32)
+    want = bs.blockscan(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = bs.blockscan(x)
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(_scan_bits(got), _scan_bits(want))
 
 
 @pytest.mark.parametrize("n,s,m", [(17, 5, 1), (1024, 300, 4),

@@ -92,7 +92,15 @@ def test_blockscan_plain_matches_reference(rng, shape, dtype):
         assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("shape", [(17,), (200, 3), (1500, 700)])
+# the row counts around the CUDA kernel's chunks (256, 512, 1,024 and
+# 2,048 rows) and the Pallas kernel's 1,024-row blocks, in 1 and 33 columns
+_CHUNK_EDGES = [(n,) if m == 1 else (n, m)
+                for n in (1, 255, 256, 257, 511, 512, 513, 1023, 1024, 1025,
+                          2049) for m in (1, 33)]
+
+
+@pytest.mark.parametrize("shape", [(17,), (200, 3), (1500, 700)]
+                         + _CHUNK_EDGES)
 @pytest.mark.parametrize("dtype", [np.float32, np.int32])
 def test_blockscan_plain_matches_pallas(rng, shape, dtype):
     """Against the Pallas kernel (interpret mode) in the types it keeps

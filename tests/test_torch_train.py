@@ -163,13 +163,17 @@ def test_param_tree_round_trips_and_counts_match():
     assert n_params(get_arch(ARCH)) == 596_049_920
 
 
-def test_loss_and_gradients_match_reference():
-    """f32: loss within 1e-5 relative, every gradient within atol=1e-5."""
-    cfg, rmodel, tree = _ref()
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "yi-6b", "gemma-7b",
+                                  "codeqwen1.5-7b"])
+def test_loss_and_gradients_match_reference(arch):
+    """f32, each dense family's reduced config (qk-norm and tied head,
+    GeGLU, untied head): loss within 1e-5 relative, every gradient within
+    atol=1e-5."""
+    cfg, rmodel, tree = _ref(arch)
     tokens = _batch(cfg)
     rloss, rgrads = jax.value_and_grad(rmodel.loss_fn)(
         tree, {"tokens": jnp.asarray(tokens)})
-    model = _port(tree)
+    model = _port(tree, arch)
     loss, grads = loop.value_and_grad(model, {"tokens": _t(tokens)})
     assert float(loss) == pytest.approx(float(rloss), rel=1e-5)
     want = _leaves(_np_tree(rgrads))
@@ -264,6 +268,20 @@ def test_grad_accumulation_matches_full_batch():
     assert max(float(np.abs(p1[k] - p4[k]).max()) for k in p1) < 2e-4
 
 
+@pytest.mark.parametrize("mb", [3, 5])
+def test_microbatches_that_do_not_divide_the_batch_raise(mb):
+    """The reference's reshape refuses a batch of 8 in 3 or 5 parts; the
+    port raises ValueError before any pass, and 4 parts still run."""
+    cfg, _, tree = _ref()
+    tokens = _t(TokenPipeline(cfg.vocab_size, 16, 8).batch_at(0))
+    grad_fn = loop.make_grad_fn(_port(tree), microbatches=mb)
+    with pytest.raises(ValueError, match="does not divide"):
+        grad_fn({"tokens": tokens})
+    loss, _ = loop.make_grad_fn(_port(tree), microbatches=4)(
+        {"tokens": tokens})
+    assert torch.isfinite(loss)
+
+
 @pytest.mark.parametrize("step,shard,n_shards", [(0, 0, 1), (7, 1, 4)])
 def test_token_pipeline_bytes_equal_reference(step, shard, n_shards):
     kw = dict(vocab_size=151936, seq_len=64, global_batch=8, shard=shard,
@@ -291,6 +309,27 @@ def test_checkpoint_round_trip_keeps_bf16_bits(tmp_path):
                        w16.view(torch.int16))
     assert torch.equal(got["params"]["b"], state["params"]["b"])
     assert int(got["opt"]["step"]) == 7 and isinstance(got["kv"], tuple)
+
+
+def test_reference_bf16_checkpoint_restores_bit_equal(tmp_path):
+    """A bf16 tree saved by the reference (``np.savez`` of bf16 arrays,
+    read back as ``|V2`` void) restores in the port as bf16, bit for bit;
+    its other leaves as written."""
+    rng = np.random.default_rng(7)
+    w = rng.normal(size=(4, 6)).astype(np.float32)
+    w[0, :3] = [np.inf, -0.0, 1e-40]
+    w16 = jnp.asarray(w, dtype=jnp.bfloat16)
+    state = {"params": {"w": w16, "b": jnp.arange(3.0)},
+             "opt": {"step": jnp.int32(3)}}
+    RCheckpointManager(tmp_path, async_save=False).save(4, state)
+    step, got = CheckpointManager(tmp_path).restore()
+    assert step == 4
+    assert got["params"]["w"].dtype == torch.bfloat16
+    want = np.asarray(w16).view(np.int16)
+    assert np.array_equal(got["params"]["w"].view(torch.int16).numpy(), want)
+    assert got["params"]["b"].dtype == torch.float32
+    assert torch.equal(got["params"]["b"], torch.arange(3.0))
+    assert int(got["opt"]["step"]) == 3
 
 
 def _continue_reference(state, cfg, rmodel, step_no):
