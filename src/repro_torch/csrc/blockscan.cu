@@ -17,10 +17,10 @@
 // block waits for totals only, never for another block's prefix, so no
 // serial chain forms.  Tickets are handed out in chunk order, so every
 // tile waited on belongs to a block that has already started, which
-// guarantees progress whatever the scheduler does.  A published total is a
-// 16-byte record {value, tag}, stored and read as one 16-byte access: a
-// reader that sees this call's tag has the value in the same load, with no
-// flag, no fence and no second round trip.
+// guarantees progress whatever the scheduler does.  A tile publishes its
+// totals by storing them, then __threadfence(), then setting its flag to
+// the call's tag with a release store; a reader polls the flag with
+// acquire loads, then reads the totals from L2.
 //
 // Two bodies:
 //   * scan_tiles, for every floating type and for integers with M > 1: a
@@ -38,14 +38,14 @@
 //     rows a block.  Integer addition is exact, so its order is free.
 // Both start copying chunk blockIdx.x before the ticket comes back (tickets
 // almost always come in block order) and copy again if it differs.
-// nvcc -Xptxas -v (CUDA 12.8, sm_90a): scan_tiles 76-79 registers for f32,
-// 71-76 for f64 and int64, 47-48 for int32, and 4,624 bytes of static
-// shared memory (2,320 for int32) beside its 64 KB tile; scan_column 31
-// (int32) and 32 (int64) registers; no spills.
+// nvcc -Xptxas -v (CUDA 12.8, sm_90a): scan_tiles 40-48 registers (32-40
+// for int32) and 4,624 bytes of static shared memory (2,320 for int32)
+// beside its 64 KB tile; scan_column 28 (int32) and 32 (int64) registers;
+// no spills.
 //
 // Carries.  Chunk c's carry is the totals of the chunks before it in its
 // super-chunk (16 chunks), added in order, plus the totals of the whole
-// super-chunks before that, so a carry reads at most 15 + c/16 records per
+// super-chunks before that, so a carry reads at most 15 + c/16 totals per
 // column.  The block of the chunk that closes a super-chunk publishes the
 // super-chunk's total (its 15 predecessors' totals, in order, plus its own)
 // before it waits on any other super-chunk, so waits never chain.
@@ -65,17 +65,20 @@
 // repeated launches give the same bits.  No float atomics: the only atomic
 // is the integer ticket.
 //
-// Scratch: one buffer of u64 words, kept per stream by the caller, zeroed
-// when allocated and reused call after call: [0] the ticket counter,
-// [1, 4) unused, then the records, one per chunk and column and then one
-// per super-chunk and column (one per block in scan_column).  Nothing is
-// reset between calls.  The caller numbers its calls on a scratch (the
-// tag, from 1) and counts the blocks it has launched on it, one ticket
-// each (the base): a block's ticket is the counter's old value less the
-// base, and a record left by an earlier call holds a smaller tag.  A
-// record's tag word is the same word for every shape, so no earlier value
-// is ever read as a tag.  So one scratch serves every call on its stream
-// with no memset launch and no reset pass.
+// Scratch, kept per stream by the caller and reused call after call:
+//   sync (u64 words, zeroed when allocated): [0] the ticket counter,
+//     [1, 4) unused, then one flag per tile, then one per (super-chunk,
+//     column tile) (one per block in scan_column);
+//   data (no initial value): the totals in the accumulator type, one per
+//     chunk and column, then one per super-chunk and column.
+// Nothing is reset between calls: the flags are reset by an epoch.  The
+// caller numbers its calls on a scratch (the tag, from 1) and counts the
+// blocks it has launched on it, one ticket each (the base): a block's
+// ticket is the counter's old value less the base, a flag is set to the
+// call's tag, and a flag left by an earlier call holds a smaller tag.
+// Flags live apart from the totals, so no word that an earlier call of
+// another shape used for a total is ever read as a flag.  So one scratch
+// serves every call on its stream with no memset launch and no reset pass.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -92,7 +95,7 @@ constexpr int kGroups = 8;           // row groups of a tile
 constexpr int kTileCols = 32;
 constexpr int kTileBytes = 64 * 1024;  // one tile's values
 constexpr int kSuper = 16;           // chunks a super-chunk total covers
-constexpr int64_t kHeader = 4;       // words before the records
+constexpr int64_t kHeader = 4;       // sync words before the flags
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxDevices = 64;
 
@@ -115,47 +118,37 @@ template <typename T> __host__ __device__ constexpr int64_t column_rows() {
 static_assert(tile_rows<double>() % (4 * kGroups) == 0,
               "a row group is whole batches of 4 rows");
 
-// Published totals: {value bits, tag} as one 16-byte access.
-template <typename A> __device__ __forceinline__ u64 to_bits(A v) {
-  if constexpr (std::is_same<A, double>::value)
-    return (u64)__double_as_longlong(v);
-  else
-    return (u64)(int64_t)v;
-}
-template <typename A> __device__ __forceinline__ A from_bits(u64 b) {
-  if constexpr (std::is_same<A, double>::value)
-    return __longlong_as_double((long long)b);
-  else
-    return (A)(int64_t)b;
+// Publication: the totals are stored, then __threadfence(), then a flag
+// word is set to the call's tag with a release store.  A reader polls the
+// flag with acquire loads and then reads the totals from L2.
+__device__ __forceinline__ u64 ld_acquire(const u64* p) {
+  u64 v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-template <typename A>
-__device__ __forceinline__ void put_record(u64* rec, A v, u64 tag) {
-  asm volatile("st.global.cg.v2.u64 [%0], {%1, %2};"
-               :: "l"(rec), "l"(to_bits(v)), "l"(tag) : "memory");
+__device__ __forceinline__ void st_release(u64* p, u64 v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
 }
 
-// One load of the record: true, and its value in *v, when it holds `tag`.
-template <typename A>
-__device__ __forceinline__ bool try_record(const u64* rec, u64 tag, A* v) {
-  u64 b, t;
-  asm volatile("ld.global.cg.v2.u64 {%0, %1}, [%2];"
-               : "=l"(b), "=l"(t) : "l"(rec) : "memory");
-  *v = from_bits<A>(b);
-  return t == tag;
-}
-
-// Poll the record until it holds `tag`, backing off so that waiting
-// threads do not crowd the L2.
-template <typename A>
-__device__ __forceinline__ A wait_record(const u64* rec, u64 tag) {
-  A v;
+// Spin until the flag holds `tag`, backing off so that waiting threads do
+// not crowd the L2.
+__device__ __forceinline__ void wait_flag(const u64* f, u64 tag) {
   unsigned ns = 16;
-  while (!try_record(rec, tag, &v)) {
+  while (ld_acquire(f) != tag) {
     __nanosleep(ns);
     if (ns < 256) ns *= 2;
   }
-  return v;
+}
+
+__device__ __forceinline__ double ld_cg(const double* p) { return __ldcg(p); }
+__device__ __forceinline__ int32_t ld_cg(const int32_t* p) {
+  return __ldcg(p);
+}
+__device__ __forceinline__ int64_t ld_cg(const int64_t* p) {
+  return (int64_t)__ldcg(reinterpret_cast<const long long*>(p));
 }
 
 // Copy `Bytes` from global to shared memory; src_size 0 fills zeros.
@@ -236,17 +229,19 @@ __device__ __forceinline__ void store_tile(const T* tile, T* out, int64_t n,
   }
 }
 
-// One tile a block; see the note at the top.  `recs` holds a record per
-// (chunk, column), `srecs` one per (super-chunk, column).
+// One tile a block; see the note at the top.  `totals` holds the totals
+// of each (chunk, column) and `flags` one flag per tile; `stotals` and
+// `sflags` the same per super-chunk.
 template <typename T, bool Vec>
 __global__ void __launch_bounds__(kThreads)
 scan_tiles(const T* __restrict__ x, int64_t n, int64_t m, int64_t ct,
-           u64* ticket, u64 base, u64 tag, u64* recs, u64* srecs,
+           u64* ticket, u64 base, u64 tag, u64* flags, u64* sflags,
+           typename Acc<T>::type* totals, typename Acc<T>::type* stotals,
            T* __restrict__ out) {
   using A = typename Acc<T>::type;
   constexpr int kRows = (int)tile_rows<T>();
   constexpr int kGroupRows = kRows / kGroups;
-  constexpr int kBatch = 8;  // records loaded together in the carry
+  constexpr int kBatch = 8;  // totals loaded together in the carry
   constexpr int kLast = kWarps - 1;
   extern __shared__ __align__(16) unsigned char smem[];
   T* const tile = reinterpret_cast<T*>(smem);  // [kRows][kTileCols]
@@ -291,7 +286,10 @@ scan_tiles(const T* __restrict__ x, int64_t n, int64_t m, int64_t ct,
 #pragma unroll
     for (int k = 0; k < kGroups; ++k) tot += part[k][lane];
     own[lane] = tot;
-    if (col < m) put_record(&recs[2 * (c * m + col)], tot, tag);
+    if (col < m) totals[c * m + col] = tot;
+    __threadfence();
+    __syncwarp();
+    if (lane == 0) st_release(&flags[t], tag);
   }
   __syncthreads();
 
@@ -304,49 +302,38 @@ scan_tiles(const T* __restrict__ x, int64_t n, int64_t m, int64_t ct,
   const int64_t sc = c / kSuper, first = sc * kSuper;
   const int n_inner = (int)(c - first);
   if (g == kLast) {
+    if (lane < n_inner) wait_flag(&flags[(first + lane) * ct + j], tag);
+    __syncwarp();
     A in = A(0);
     if (col < m) {
       A v[kSuper - 1];
-      bool ready = true;
 #pragma unroll
-      for (int u = 0; u < kSuper - 1; ++u) {
-        v[u] = A(0);
-        if (u < n_inner)
-          ready &= try_record(&recs[2 * ((first + u) * m + col)], tag, &v[u]);
-      }
-      if (!ready) {
-#pragma unroll
-        for (int u = 0; u < kSuper - 1; ++u)
-          if (u < n_inner)
-            v[u] = wait_record<A>(&recs[2 * ((first + u) * m + col)], tag);
-      }
+      for (int u = 0; u < kSuper - 1; ++u)
+        v[u] = u < n_inner ? ld_cg(&totals[(first + u) * m + col]) : A(0);
 #pragma unroll
       for (int u = 0; u < kSuper - 1; ++u)
         if (u < n_inner) in += v[u];
-      if (n_inner == kSuper - 1)
-        put_record(&srecs[2 * (sc * m + col)], in + own[lane], tag);
     }
     inner[lane] = in;
+    if (n_inner == kSuper - 1) {  // this chunk closes its super-chunk
+      if (col < m) stotals[sc * m + col] = in + own[lane];
+      __threadfence();
+      __syncwarp();
+      if (lane == 0) st_release(&sflags[sc * ct + j], tag);
+    }
   }
   A acc = A(0);
-  if (col < m) {
-    for (int64_t p = g; p < sc; p += kBatch * kGroups) {
+  for (int64_t p = g; p < sc; p += kBatch * kGroups) {
+    // lane u waits for super-chunk p + 8u; then every lane reads them
+    if (lane < kBatch && p + lane * kGroups < sc)
+      wait_flag(&sflags[(p + lane * kGroups) * ct + j], tag);
+    __syncwarp();
+    if (col < m) {
       A v[kBatch];
-      bool ready = true;
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        v[u] = A(0);
-        if (p + u * kGroups < sc)
-          ready &= try_record(&srecs[2 * ((p + u * kGroups) * m + col)], tag,
-                              &v[u]);
-      }
-      if (!ready) {
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u)
-          if (p + u * kGroups < sc)
-            v[u] = wait_record<A>(&srecs[2 * ((p + u * kGroups) * m + col)],
-                                  tag);
-      }
+      for (int u = 0; u < kBatch; ++u)
+        v[u] = p + u * kGroups < sc
+                   ? ld_cg(&stotals[(p + u * kGroups) * m + col]) : A(0);
 #pragma unroll
       for (int u = 0; u < kBatch; ++u)
         if (p + u * kGroups < sc) acc += v[u];
@@ -394,12 +381,12 @@ __device__ __forceinline__ void load_column(T* v, const T* x, int64_t n,
   }
 }
 
-// One column of int32 or int64, column_rows<T>() rows a block; `recs`
-// holds one record per block.
+// One column of int32 or int64, column_rows<T>() rows a block; `totals`
+// and `flags` hold one total and one flag per block.
 template <typename T, bool Vec>
 __global__ void __launch_bounds__(kThreads)
 scan_column(const T* __restrict__ x, int64_t n, u64* ticket, u64 base,
-            u64 tag, u64* recs, T* __restrict__ out) {
+            u64 tag, u64* flags, T* totals, T* __restrict__ out) {
   constexpr int kItems = column_items<T>();
   __shared__ T warp_inc[kWarps];
   __shared__ T red[kWarps];
@@ -439,12 +426,17 @@ scan_column(const T* __restrict__ x, int64_t n, u64* ticket, u64 base,
   }
   __syncthreads();
   T offset = (warp > 0 ? warp_inc[warp - 1] : T(0)) + (inc - mine);
-  if (threadIdx.x == 0)  // publish the block's total
-    put_record(&recs[2 * c], warp_inc[kWarps - 1], tag);
+  if (threadIdx.x == 0) {  // publish the block's total
+    totals[c] = warp_inc[kWarps - 1];
+    __threadfence();
+    st_release(&flags[c], tag);
+  }
 
   T acc = T(0);
-  for (int64_t p = threadIdx.x; p < c; p += kThreads)
-    acc += wait_record<T>(&recs[2 * p], tag);
+  for (int64_t p = threadIdx.x; p < c; p += kThreads) {
+    wait_flag(&flags[p], tag);
+    acc += ld_cg(&totals[p]);
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_down_sync(kFull, acc, off);
@@ -487,8 +479,10 @@ cudaError_t allow_tile_smem() {
 }
 
 template <typename T>
-int launch(const T* x, int64_t n, int64_t m, u64* scratch, int64_t words,
-           u64 tag, u64 base, T* out, void* stream_) {
+int launch(const T* x, int64_t n, int64_t m, u64* sync, int64_t sync_words,
+           void* data, int64_t data_words, u64 tag, u64 base, T* out,
+           void* stream_) {
+  using A = typename Acc<T>::type;
   cudaStream_t stream = (cudaStream_t)stream_;
   if (n <= 0 || m <= 0) return 0;
   const bool column = std::is_integral<T>::value && m == 1;
@@ -498,10 +492,14 @@ int launch(const T* x, int64_t n, int64_t m, u64* scratch, int64_t words,
   const int64_t tiles = chunks * ct;  // one block, and one ticket, each
   const int64_t supers = column ? 0 : chunks / kSuper;
   if (tiles > 0x7fffffff) return kErrShape;
-  if (kHeader + 2 * (chunks + supers) * m > words) return kErrScratch;
-  u64* ticket = scratch;
-  u64* recs = scratch + kHeader;
-  u64* srecs = recs + 2 * chunks * m;
+  if (kHeader + tiles + supers * ct > sync_words ||
+      (chunks + supers) * m > data_words)
+    return kErrScratch;
+  u64* ticket = sync;
+  u64* flags = sync + kHeader;
+  u64* sflags = flags + tiles;
+  A* totals = reinterpret_cast<A*>(data);
+  A* stotals = totals + chunks * m;
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) &
        15) == 0;
@@ -510,10 +508,10 @@ int launch(const T* x, int64_t n, int64_t m, u64* scratch, int64_t words,
     if (column) {
       if (aligned)
         scan_column<T, true><<<grid, kThreads, 0, stream>>>(
-            x, n, ticket, base, tag, recs, out);
+            x, n, ticket, base, tag, flags, totals, out);
       else
         scan_column<T, false><<<grid, kThreads, 0, stream>>>(
-            x, n, ticket, base, tag, recs, out);
+            x, n, ticket, base, tag, flags, totals, out);
       return (int)cudaGetLastError();
     }
   }
@@ -521,12 +519,12 @@ int launch(const T* x, int64_t n, int64_t m, u64* scratch, int64_t words,
     const cudaError_t err = allow_tile_smem<T, true>();
     if (err != cudaSuccess) return (int)err;
     scan_tiles<T, true><<<grid, kThreads, kTileBytes, stream>>>(
-        x, n, m, ct, ticket, base, tag, recs, srecs, out);
+        x, n, m, ct, ticket, base, tag, flags, sflags, totals, stotals, out);
   } else {
     const cudaError_t err = allow_tile_smem<T, false>();
     if (err != cudaSuccess) return (int)err;
     scan_tiles<T, false><<<grid, kThreads, kTileBytes, stream>>>(
-        x, n, m, ct, ticket, base, tag, recs, srecs, out);
+        x, n, m, ct, ticket, base, tag, flags, sflags, totals, stotals, out);
   }
   return (int)cudaGetLastError();
 }
@@ -547,15 +545,19 @@ extern "C" void blockscan_layout(int64_t* out) {
 }
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on success),
-// kErrScratch when `scratch` has fewer than the shape's words, or
-// kErrShape.  `scratch` is zeroed when allocated and belongs to one
-// stream.  `tag` is this call's number on it, counting from 1, and `base`
-// the blocks that the calls before launched on it (one ticket each).
+// kErrScratch when `sync` or `data` has fewer than the shape's words, or
+// kErrShape.  `sync` is zeroed when allocated and only ever holds the
+// ticket count and tags; `data` holds totals and needs no initial value;
+// both belong to one stream.  `tag` is this call's number on them,
+// counting from 1, and `base` the blocks that the calls before launched on
+// them (one ticket each).
 #define BLOCKSCAN_ENTRY(suffix, T)                                          \
-  extern "C" int blockscan_##suffix(const T* x, int64_t n, int64_t m,       \
-                                    u64* scratch, int64_t words, u64 tag,   \
-                                    u64 base, T* out, void* stream) {       \
-    return launch<T>(x, n, m, scratch, words, tag, base, out, stream);      \
+  extern "C" int blockscan_##suffix(                                        \
+      const T* x, int64_t n, int64_t m, u64* sync, int64_t sync_words,      \
+      void* data, int64_t data_words, u64 tag, u64 base, T* out,            \
+      void* stream) {                                                       \
+    return launch<T>(x, n, m, sync, sync_words, data, data_words, tag,     \
+                     base, out, stream);                                    \
   }
 BLOCKSCAN_ENTRY(f32, float)
 BLOCKSCAN_ENTRY(f64, double)

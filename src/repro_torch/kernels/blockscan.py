@@ -12,10 +12,10 @@ bit-identical however the funnel groups them.
 
 :func:`blockscan` launches the hand-written CUDA kernel on CUDA tensors and
 runs :func:`blockscan_plain` on CPU tensors.  The kernel is one launch; it
-keeps its ticket and its published totals in a buffer per (card, stream)
-that is zeroed once when allocated and never reset (calls are told their
-number on it instead), so a call makes one ctypes call and allocates only
-its output.
+keeps its ticket and flags in a buffer per (card, stream) that is zeroed
+once when allocated and never reset (calls are told their number on it
+instead), and its totals in a second one, so a call makes one ctypes call
+and allocates only its output.
 """
 from __future__ import annotations
 
@@ -40,17 +40,22 @@ _fns: dict = {}                   # dtype -> the launcher, its C signature set
 
 
 class _Scratch:
-    """The kernel's scratch on one stream (``csrc/blockscan.cu``): the
-    ticket counter and the 16-byte records of published totals, zeroed
-    once.  Calls are numbered (``tag``) and their blocks, one ticket each,
-    counted (``base``) in the order they are enqueued on the stream, under
-    ``lock``."""
+    """The kernel's scratch on one stream (``csrc/blockscan.cu``): ``sync``,
+    zeroed once, holds the ticket counter and the flags, ``data`` the
+    totals.  Calls are numbered (``tag``) and their blocks, one ticket
+    each, counted (``base``) in the order they are enqueued on the stream,
+    under ``lock``."""
 
-    def __init__(self, words: int, device):
-        self.buf = torch.zeros(words, dtype=torch.int64, device=device)
+    def __init__(self, sync_words: int, data_words: int, device):
+        self.sync = torch.zeros(sync_words, dtype=torch.int64, device=device)
+        self.data = torch.empty(data_words, dtype=torch.int64, device=device)
         self.tag = 0
         self.base = 0
         self.lock = threading.Lock()
+
+    def fits(self, sync_words: int, data_words: int) -> bool:
+        return (self.sync.numel() >= sync_words
+                and self.data.numel() >= data_words)
 
 
 # (device index, stream handle) -> its _Scratch
@@ -80,28 +85,35 @@ def _constants() -> tuple:
 
 
 @functools.lru_cache(maxsize=256)
-def plan(n: int, m: int, dtype: torch.dtype) -> tuple[int, int]:
-    """``(blocks, scratch words)`` of a launch on (n, m) of ``dtype``: a
-    block per tile; the header, then two words a record, one record per
-    chunk and column and, for tiles, one per super-chunk and column."""
+def plan(n: int, m: int, dtype: torch.dtype) -> tuple[int, int, int]:
+    """``(blocks, sync words, data words)`` of a launch on (n, m) of
+    ``dtype``: a block per tile; the header and one flag per tile, plus
+    for tiles one per super-chunk and column tile; one total per chunk and
+    column, plus for tiles one per super-chunk and column."""
     header, tile_cols, tile_rows, column_rows, per_super = _constants()
     if m == 1 and dtype in column_rows:
         chunks = -(-n // column_rows[dtype])
-        return chunks, header + 2 * chunks
+        return chunks, header + chunks, chunks
     chunks = -(-n // tile_rows[dtype.itemsize])
-    return (chunks * -(-m // tile_cols),
-            header + 2 * (chunks + chunks // per_super) * m)
+    col_tiles = -(-m // tile_cols)
+    supers = chunks // per_super
+    blocks = chunks * col_tiles
+    return (blocks, header + blocks + supers * col_tiles,
+            (chunks + supers) * m)
 
 
-def _scratch_for(device: int, stream: int, words: int) -> _Scratch:
+def _scratch_for(device: int, stream: int, sync_words: int,
+                 data_words: int) -> _Scratch:
     key = (device, stream)
     sc = _scratch.get(key)
-    if sc is None or sc.buf.numel() < words:
+    if sc is None or not sc.fits(sync_words, data_words):
         with _scratch_lock:
             sc = _scratch.get(key)
-            if sc is None or sc.buf.numel() < words:
-                old = 0 if sc is None else sc.buf.numel()
-                sc = _Scratch(max(words, 2 * old),
+            if sc is None or not sc.fits(sync_words, data_words):
+                if sc is not None:  # grow both, at least twofold
+                    sync_words = max(sync_words, 2 * sc.sync.numel())
+                    data_words = max(data_words, 2 * sc.data.numel())
+                sc = _Scratch(sync_words, data_words,
                               torch.device("cuda", device))
                 _scratch[key] = sc
     return sc
@@ -112,8 +124,9 @@ def _launcher(dtype: torch.dtype):
     if fn is None:
         fn = _build.function("blockscan", f"blockscan_{_SUFFIX[dtype]}",
                              (_build.PTR, _build.I64, _build.I64, _build.PTR,
-                              _build.I64, ctypes.c_uint64, ctypes.c_uint64,
-                              _build.PTR, _build.PTR))
+                              _build.I64, _build.PTR, _build.I64,
+                              ctypes.c_uint64, ctypes.c_uint64, _build.PTR,
+                              _build.PTR))
         _fns[dtype] = fn
     return fn
 
@@ -132,12 +145,13 @@ def blockscan_cuda(x: torch.Tensor) -> torch.Tensor:
     fn = _launcher(x.dtype)
     device = x.get_device()
     stream = torch._C._cuda_getCurrentRawStream(device)
-    blocks, words = plan(n, m, x.dtype)
-    sc = _scratch_for(device, stream, words)
+    blocks, sync_words, data_words = plan(n, m, x.dtype)
+    sc = _scratch_for(device, stream, sync_words, data_words)
     name = f"blockscan_{_SUFFIX[x.dtype]}"
     with sc.lock:
-        args = (x.data_ptr(), n, m, sc.buf.data_ptr(), sc.buf.numel(),
-                sc.tag + 1, sc.base, out.data_ptr(), stream)
+        args = (x.data_ptr(), n, m, sc.sync.data_ptr(), sc.sync.numel(),
+                sc.data.data_ptr(), sc.data.numel(), sc.tag + 1, sc.base,
+                out.data_ptr(), stream)
         if device == torch._C._cuda_getDevice():
             status = fn(*args)
         else:
