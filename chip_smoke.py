@@ -20,8 +20,11 @@ read just after:
 3. ``exact_parity`` — an integer-valued workload of the same shape through
    both computes: ``db.pms``, ``db.cms`` and ``db.trc`` byte-identical.
 4. ``determinism`` — one inclusive column scanned alone and inside the
-   main path's batch gives bitwise-equal results, and 10 launches of
-   ``blockscan`` on each of the main path's scan inputs give equal bits.
+   main path's batch gives bitwise-equal results; 10 launches of
+   ``blockscan`` on each of the main path's scan inputs, of ``segstats`` on
+   its input and of the float ``scatter_add`` at the census shape give
+   equal bits; and a ``segstats`` profile, and the census segments of the
+   ``scatter_add``, give the same bits alone and among others.
    ``combine_repeats`` — the integer workload's 48 profiles through
    ``fused_transform`` with a CUDA ``DeviceAggregator`` on a unified tree
    of the main path's context count, remapped many to one with placeholder
@@ -49,7 +52,12 @@ read just after:
     CUDA events over back-to-back calls) and device time (``device_ms``,
     ``torch.profiler``'s kernel durations per call), the plain version's
     time, the same two for one library call where there is one, and the
-    least time the card could take.
+    least time the card could take; the names of the device kernels the
+    calls ran (``device_kernels``), which must all be the port's own, and
+    their durations alone per call (``kernel_ms``, no gaps between them).
+    ``segstats`` is also held on its input with NaN and infinities put in
+    (``nan_case``); the float ``scatter_add`` at the census shape, at 40
+    columns and on a skewed input (90% of 200,000 rows in one segment).
 
 Every line before the last is one JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero without
@@ -84,6 +92,7 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 8, 128
 PARITY_LAYERS, PARITY_BATCH = 2, 2
 PARITY_RTOL_LOSS, PARITY_RTOL_GNORM = 1e-2, 2e-2  # bf16, card vs CPU
 COMPRESSION_ROUNDS = 3
+SKEW_ROWS, SKEW_SHARE = 200_000, 0.9  # the skewed scatter-add input
 
 
 class SmokeFailure(RuntimeError):
@@ -230,6 +239,54 @@ def device_ms(fn, iters: int = 20) -> float | None:
     return us / 1e3 / calls if us > 0 else None
 
 
+def port_kernel_names() -> set[str]:
+    """The ``__global__`` functions of the port's CUDA sources."""
+    import re
+    names = set()
+    for src in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"):
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+            src.read_text()))
+    return names
+
+
+def device_kernels(fn, iters: int = 20) -> tuple[list[str], float | None]:
+    """The names of the device activities (kernels, memsets) that
+    ``torch.profiler`` records over ``iters`` calls of ``fn``, and their
+    durations summed per call (None when it records none).  No call is
+    annotated, so this is the kernels' own time, without the gaps in which
+    the card waits for the host's next launch.  A warm-up cycle runs first,
+    as in ``device_ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    cycles = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: cycles.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    require(len(cycles) == 1, f"the profiler gave {len(cycles)} cycles")
+    events = [e for e in cycles[0]
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(_dev_us(e) for e in events)
+    return (sorted({e.key for e in events}),
+            us / 1e3 / iters if us > 0 else None)
+
+
+def foreign_kernels(names: list[str], own: set[str]) -> list[str]:
+    """The names that are neither one of ``own`` kernels nor a memset: a
+    library's sort, scan or scatter would be among them."""
+    import re
+    return [k for k in names if not k.startswith("Memset") and not any(
+        re.search(rf"(?<!\w){o}\s*[<(]", k) for o in own)]
+
+
 def bound(nbytes: int, nops: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / SCALAR_OPS_PER_S * 1e3
@@ -260,6 +317,10 @@ def kernel_entry(name, source, replaces, launches, kernel, plain, library,
                     f"{name}: kernel and plain version differ in bits")
     tol = 0.0 if exact else RTOL * max(1.0, scale)
     require(err <= tol, f"{name}: max_abs_err {err} > tolerance {tol}")
+    names, kernel_ms = device_kernels(kernel)
+    foreign = foreign_kernels(names, port_kernel_names())
+    require(names and not foreign, f"{name}: the profiler saw {names}, "
+            f"of which not the port's own: {foreign}")
     call_ms = time_ms(kernel)
     lib_call_ms = time_ms(library) if library else None
     bound_ms, bound_by = bound(nbytes, nops)
@@ -270,7 +331,8 @@ def kernel_entry(name, source, replaces, launches, kernel, plain, library,
             "plain_ms": time_ms(plain), "library_ms": lib_call_ms,
             "library_call_ms": lib_call_ms,
             "library_device_ms": device_ms(library) if library else None,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "device_kernels": names, "kernel_ms": kernel_ms}
 
 
 def _bits(t):
@@ -369,6 +431,65 @@ def combine_repeats_phase(ipaths, n_ctx: int, device: str = "cuda") -> dict:
                 f"segstats launched {counts.get('segstats', 0)} times for "
                 f"{len(ipaths)} profiles")
     return out
+
+
+def segstats_nan_case(ss, ids, vals, n_seg) -> dict:
+    """The main path's segstats input with NaN and +-inf put at in-range
+    positions: NaN at the same places as the plain version, the rest
+    within RTOL of the largest magnitude."""
+    import torch
+    g = torch.Generator(device=vals.device).manual_seed(SEED_FLOAT)
+    v = vals.clone()
+    pick = torch.randperm(v.numel(), generator=g, device=v.device)[:30]
+    v[pick[:10]] = float("nan")
+    v[pick[10:20]] = float("inf")
+    v[pick[20:]] = float("-inf")
+    got, want = ss.segstats_cuda(ids, v, n_seg), ss.segstats_plain(
+        ids, v, n_seg)
+    nan = torch.isnan(want)
+    same_nan = bool(torch.equal(torch.isnan(got), nan))
+    fin = ~nan & torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    tol = RTOL * max(1.0, float(want[fin].abs().max()))
+    out = {"nan_values": 10, "inf_values": 20,
+           "nan_rows": int(torch.isnan(got[:, 2]).sum()),
+           "nan_positions_equal": same_nan,
+           "inf_equal": bool(torch.equal(got[~fin & ~nan], want[~fin & ~nan])),
+           "max_abs_err": err, "tolerance": tol}
+    require(same_nan and out["inf_equal"] and err <= tol and
+            out["nan_rows"] > 0, f"segstats with NaN and inf: {out}")
+    return out
+
+
+def segstats_alone_among_others(ss, ids, vals, n_seg) -> bool:
+    """The main path's segstats input alone, and offset inside a
+    concatenation after the same input less its first 5 values: its rows
+    give the same bits."""
+    import torch
+    alone = ss.segstats_cuda(ids, vals, n_seg)
+    among = ss.segstats_cuda(torch.cat([ids[5:], ids + n_seg]),
+                             torch.cat([vals[5:], vals]), 2 * n_seg)
+    return bool(torch.equal(_bits(among[n_seg:]), _bits(alone)))
+
+
+def scatter_add_alone_among_others(sc, ids, vals, n_bins) -> bool:
+    """The census ids alone, and with as many rows of other segments put
+    between them: the census segments give the same bits."""
+    import torch
+    g = torch.Generator(device=ids.device).manual_seed(SEED_FLOAT)
+    n = ids.numel()
+    others = torch.randint(n_bins, 2 * n_bins, (n,), generator=g,
+                           device=ids.device, dtype=ids.dtype)
+    mixed = torch.randperm(2 * n, generator=g, device=ids.device)
+    own = torch.sort(mixed[:n]).values  # the census rows keep their order
+    big_ids = torch.empty(2 * n, dtype=ids.dtype, device=ids.device)
+    big_vals = torch.empty(2 * n, dtype=vals.dtype, device=vals.device)
+    big_ids[mixed[n:]] = others
+    big_vals[mixed[n:]] = torch.rand(n, generator=g, device=vals.device)
+    big_ids[own], big_vals[own] = ids, vals
+    alone = sc.scatter_add_cuda(ids, vals, n_bins)
+    among = sc.scatter_add_cuda(big_ids, big_vals, 2 * n_bins)
+    return bool(torch.equal(_bits(among[:n_bins]), _bits(alone)))
 
 
 def repeated_launches(fn, times: int = 10) -> bool:
@@ -707,19 +828,36 @@ def main() -> int:
                 hids.element_size() * hids.numel() + 8 * n_bins,
                 hids.numel(), True),
         ]
-        # the float scatter-add is off the path: held at the census shape
-        fvals = torch.from_numpy(np.random.default_rng(SEED_FLOAT).uniform(
+        entries[0]["nan_case"] = segstats_nan_case(ss, ids, vals, n_seg)
+        # the float scatter-add is off the path: held at the census shape,
+        # at 40 columns, and on a skewed input, each against its plain
+        # version and index_add_
+        frng = np.random.default_rng(SEED_FLOAT)
+        fvals = torch.from_numpy(frng.uniform(
             0.5, 2.0, hids.numel()).astype(np.float32)).cuda()
-        entries.append(kernel_entry(
-            "scatter_add", src + "scatter_add.cu",
-            "src/repro/kernels/scatter_add.py:41",
-            counts.get("scatter_add", 0),
-            lambda: sc.scatter_add_cuda(hids, fvals, n_bins),
-            lambda: sc.scatter_add_plain(hids, fvals, n_bins),
-            lambda: torch.zeros(n_bins, device=fvals.device).index_add_(
-                0, hids, fvals),
-            8 * hids.numel() + 4 * hids.numel() + 4 * n_bins,
-            hids.numel(), False, on_path=False))
+        f40 = torch.from_numpy(frng.uniform(
+            0.5, 2.0, (hids.numel(), 40)).astype(np.float32)).cuda()
+        sk_ids = frng.integers(0, n_bins, SKEW_ROWS)
+        sk_ids[frng.random(SKEW_ROWS) < SKEW_SHARE] = n_bins // 2
+        sk_ids = torch.from_numpy(sk_ids).cuda()
+        sk_vals = torch.from_numpy(frng.uniform(
+            0.5, 2.0, SKEW_ROWS).astype(np.float32)).cuda()
+        for name, sids, sv in (("scatter_add", hids, fvals),
+                               ("scatter_add_m40", hids, f40),
+                               ("scatter_add_skewed", sk_ids, sk_vals)):
+            m = 1 if sv.dim() == 1 else sv.shape[1]
+            entries.append(kernel_entry(
+                name, src + "scatter_add.cu",
+                "src/repro/kernels/scatter_add.py:41",
+                counts.get("scatter_add", 0),
+                lambda i=sids, v=sv: sc.scatter_add_cuda(i, v, n_bins),
+                lambda i=sids, v=sv: sc.scatter_add_plain(i, v, n_bins),
+                lambda i=sids, v=sv: torch.zeros(
+                    (n_bins,) + tuple(v.shape[1:]),
+                    device=v.device).index_add_(0, i, v),
+                sids.element_size() * sids.numel() + 4 * sv.numel()
+                + 4 * n_bins * m,
+                sv.numel(), False, on_path=False))
 
         # -- determinism: a column alone vs inside the batch
         xb, end = rec.args("inclusive")
@@ -735,13 +873,21 @@ def main() -> int:
                "blockscan_f32_repeats_equal": repeated_launches(
                    lambda: bs.blockscan_cuda(xf)),
                "blockscan_i64_repeats_equal": repeated_launches(
-                   lambda: bs.blockscan_cuda(xi))}
+                   lambda: bs.blockscan_cuda(xi)),
+               "segstats_repeats_equal": repeated_launches(
+                   lambda: ss.segstats_cuda(ids, vals, n_seg)),
+               "scatter_add_repeats_equal": repeated_launches(
+                   lambda: sc.scatter_add_cuda(hids, fvals, n_bins)),
+               "segstats_alone_equal": segstats_alone_among_others(
+                   ss, ids, vals, n_seg),
+               "scatter_add_alone_equal": scatter_add_alone_among_others(
+                   sc, hids, fvals, n_bins)}
         emit({"determinism": det})
         require(det["inclusive_equal"] and det["scan_equal"],
                 f"a column's result depends on its batch: {det}")
-        require(det["blockscan_f32_repeats_equal"]
-                and det["blockscan_i64_repeats_equal"],
-                f"repeated blockscan launches differ: {det}")
+        require(all(v for k, v in det.items() if k.endswith("_equal")),
+                f"repeated launches, or a segment alone and among others, "
+                f"differ: {det}")
 
         # -- the combine on repeated keys at full size, against numpy
         emit({"combine_repeats": combine_repeats_phase(

@@ -5,11 +5,14 @@ its wrapper's empty-segment finalisation.  For ids sorted ascending (int32)
 and f32 values, row ``s`` of the (S, 8) f32 result is
 ``[sum, count, min, max, sumsq, 0, 0, 0]`` over ``vals[ids == s]``; ids
 outside ``[0, S)`` are sentinels and contribute nothing, and empty segments
-have min = max = 0.
+are all zero.
 
 :func:`segstats` launches the hand-written CUDA kernel
-(``csrc/segstats.cu``) on CUDA tensors and runs :func:`segstats_plain` on
-CPU tensors.
+(``csrc/segstats.cu``: one launch, one coalesced pass in which each run is
+found from its neighbours' ids and summed in an order fixed by the run
+alone) on CUDA tensors and runs :func:`segstats_plain` on CPU tensors.  A
+segment holding a NaN has NaN sum, min, max and sumsq; a sentinel's value
+reaches no segment.
 """
 from __future__ import annotations
 
@@ -18,6 +21,17 @@ import torch
 from repro_torch.kernels import _build
 
 N_STATS = 8
+
+_fn = None  # the launcher, its C signature set
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        _fn = _build.function("segstats", "segstats_f32",
+                              (_build.PTR, _build.PTR, _build.I64,
+                               _build.I32, _build.PTR, _build.PTR))
+    return _fn
 
 
 def segstats(ids: torch.Tensor, vals: torch.Tensor,
@@ -43,15 +57,19 @@ def segstats_cuda(ids: torch.Tensor, vals: torch.Tensor,
     if not 0 <= s < 2 ** 31:
         raise ValueError(f"segstats: num_segments {s} outside [0, 2^31)")
     out = torch.empty((s, N_STATS), dtype=torch.float32, device=ids.device)
-    fn = _build.function("segstats", "segstats_f32",
-                         (_build.PTR, _build.PTR, _build.I64, _build.I32,
-                          _build.PTR, _build.PTR))
-    with torch.cuda.device(ids.device):
-        status = fn(ids.data_ptr(), vals.data_ptr(), ids.numel(), s,
-                    out.data_ptr(), _build.stream_of(ids))
+    if s == 0:
+        return out
+    device = ids.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    args = (ids.data_ptr(), vals.data_ptr(), ids.numel(), s, out.data_ptr(),
+            stream)
+    if device == torch._C._cuda_getDevice():
+        status = _launcher()(*args)
+    else:
+        with torch.cuda.device(device):
+            status = _launcher()(*args)
     _build.check(status, "segstats")
-    if s:
-        _build.launch_counts.add("segstats")
+    _build.launch_counts.add("segstats")
     return out
 
 

@@ -50,6 +50,104 @@ def test_segstats_kernel_matches_plain(dev, rng, n, s, sentinels):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _stats_close(got, want, longest=32):
+    """NaN at the same places; infinities equal; elsewhere within 1e-5
+    plus 1e-7 per value of the longest run: the two sum a run in different
+    orders, and f32 rounding grows with the run's length."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    torch.testing.assert_close(got[~nan], want[~nan], rtol=1e-5,
+                               atol=1e-5 + 1e-7 * longest)
+
+
+def _runs(lengths, s):
+    """Sorted ids: segment k of ``s`` holds ``lengths[k]`` values."""
+    return np.repeat(np.arange(s), lengths).astype(np.int32)
+
+
+@pytest.mark.parametrize("length", [1, 31, 32, 33, 1000])
+def test_segstats_runs_of_one_length(dev, rng, length):
+    """Every run ``length`` long, each starting at every offset modulo 32;
+    and the same runs between runs of 1 and 7."""
+    s = 200
+    ids = _runs(np.full(s, length), s)
+    mixed = _runs(np.where(np.arange(s) % 3 == 0, length,
+                                np.where(np.arange(s) % 3 == 1, 1, 7)), s)
+    for x in (ids, mixed):
+        vals = _on(dev, rng.normal(size=x.size).astype(np.float32))
+        got = ss.segstats(_on(dev, x), vals, s)
+        _stats_close(got, ss.segstats_plain(_on(dev, x), vals, s), length)
+
+
+@pytest.mark.parametrize("n,s,ids_of", [
+    (0, 5, lambda n, s: np.zeros(0, np.int32)),
+    (10, 0, lambda n, s: np.zeros(10, np.int32)),
+    (300, 64, lambda n, s: np.full(n, s + 2, np.int32)),
+    (300, 64, lambda n, s: np.sort(np.concatenate([
+        np.full(100, -3), np.full(200, s)])).astype(np.int32)),
+    (5000, 20000, lambda n, s: np.sort(np.random.default_rng(0).integers(
+        -5, s + 5, n)).astype(np.int32)),
+])
+def test_segstats_empty_and_all_sentinel(dev, rng, n, s, ids_of):
+    """n = 0, S = 0, every id a sentinel on either side, and wide gaps:
+    empty segments are all zero."""
+    ids = _on(dev, ids_of(n, s))
+    vals = _on(dev, rng.normal(size=n).astype(np.float32))
+    got = ss.segstats(ids, vals, s)
+    assert got.shape == (s, ss.N_STATS)
+    _stats_close(got, ss.segstats_plain(ids, vals, s))
+
+
+def test_segstats_nan_and_inf(dev, rng):
+    """A segment holding a NaN has NaN sum, min, max and sumsq; a sentinel's
+    NaN reaches no segment; infinities as in the plain version."""
+    s = 300
+    ids = np.sort(np.concatenate([rng.integers(0, s, 5000), [-1],
+                                  np.full(4, s)])).astype(np.int32)
+    vals = rng.normal(size=ids.size).astype(np.float32)
+    pick = rng.choice(np.arange(1, ids.size - 4), size=60, replace=False)
+    vals[pick[:20]] = np.nan
+    vals[pick[20:40]] = np.inf
+    vals[pick[40:]] = -np.inf
+    vals[0] = vals[-1] = np.nan
+    it, vt = _on(dev, ids), _on(dev, vals)
+    got = ss.segstats(it, vt, s)
+    _stats_close(got, ss.segstats_plain(it, vt, s))
+    nan_segs = np.unique(ids[1:-4][np.isnan(vals[1:-4])])
+    assert torch.isnan(got[:, 2]).sum().item() == nan_segs.size
+    assert torch.isnan(got[nan_segs][:, [0, 2, 3, 4]]).all()
+
+
+def _main_path_like(rng, s, longest=11):
+    """Sorted dense ranks with runs of 1 to ``longest`` values."""
+    ids = _runs(rng.integers(1, longest + 1, s), s)
+    return ids, rng.normal(size=ids.size).astype(np.float32)
+
+
+def test_segstats_repeated_launches_bit_equal(dev, rng):
+    ids, vals = _main_path_like(rng, 17280)
+    it, vt = _on(dev, ids), _on(dev, vals)
+    first = _scan_bits(ss.segstats(it, vt, 17280))
+    for _ in range(9):
+        assert torch.equal(_scan_bits(ss.segstats(it, vt, 17280)), first)
+
+
+def test_segstats_profile_alone_equals_among_others(dev, rng):
+    """A profile's ids alone and the same ids offset inside a concatenation
+    with other profiles give the same bits in its rows."""
+    parts = [_main_path_like(rng, s, longest) for s, longest in
+             ((1000, 40), (17280, 11), (333, 1000))]
+    alone_ids, alone_vals = parts[1]
+    alone = ss.segstats(_on(dev, alone_ids), _on(dev, alone_vals), 17280)
+    (i0, v0), _, (i2, v2) = parts
+    for lead in (0, 1, 5, 31):  # shifts the profile's offset modulo 32
+        ids = np.concatenate([i0[lead:], alone_ids + 1000, i2 + 18280])
+        vals = np.concatenate([v0[lead:], alone_vals, v2])
+        got = ss.segstats(_on(dev, ids), _on(dev, vals), 18613)
+        assert torch.equal(_scan_bits(got[1000:18280]), _scan_bits(alone))
+
+
 @pytest.mark.parametrize("shape", [(17,), (200, 3), (1500, 700), (2049, 33),
                                    (196000,)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32,
@@ -176,6 +274,105 @@ def test_scatter_add_kernel_matches_plain(dev, rng, n, s, m):
     want = sc.scatter_add_plain(ids, vals, s)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert torch.equal(got, sc.scatter_add(ids, vals, s))  # fixed order
+
+
+def _sums_close(got, want, tol=1e-5):
+    """Within ``tol`` of the largest sum: the kernel adds each segment in
+    ascending row order, the plain version in its own order."""
+    assert got.shape == want.shape and got.dtype == torch.float32
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    torch.testing.assert_close(got, want.to(got.dtype), rtol=0,
+                               atol=tol * scale)
+
+
+@pytest.mark.parametrize("id_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("m", [1, 8, 40, 88])
+def test_scatter_add_id_types_and_widths(dev, rng, id_dtype, m):
+    n, s = 30_000, 5_000
+    ids = _on(dev, rng.integers(-3, s + 3, n).astype(id_dtype))
+    shape = (n,) if m == 1 else (n, m)
+    vals = _on(dev, rng.normal(size=shape).astype(np.float32))
+    _sums_close(sc.scatter_add(ids, vals, s),
+                sc.scatter_add_plain(ids, vals, s))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049, 4097])
+@pytest.mark.parametrize("s", [1, 2, 511, 512, 513, 2 ** 18 - 1, 2 ** 18])
+def test_scatter_add_tile_and_digit_edges(dev, rng, n, s):
+    """Row counts around the 2,048-row radix tile, and S around the 9-bit
+    digits (keys in [0, S] need bit_length(S) bits: one pass up to S =
+    511, two from 512, three from 2^18)."""
+    ids = _on(dev, np.concatenate([rng.integers(0, s, n - n // 10),
+                                   rng.integers(s, s + 5, n // 10)]))
+    vals = _on(dev, rng.normal(size=n).astype(np.float32))
+    _sums_close(sc.scatter_add(ids, vals, s),
+                sc.scatter_add_plain(ids, vals, s))
+
+
+def _skewed(rng, n=200_000, s=196_049):
+    """One segment holding 90% of the rows, the rest spread."""
+    ids = rng.integers(0, s, n)
+    ids[rng.random(n) < 0.9] = 777
+    return ids
+
+
+def _zipf(rng, n=200_000, s=196_049):
+    return np.minimum(rng.zipf(1.3, n) - 1, s + 10)
+
+
+@pytest.mark.parametrize("ids_of", [_skewed, _zipf])
+@pytest.mark.parametrize("m", [1, 40])
+def test_scatter_add_skewed_inputs(dev, rng, ids_of, m):
+    ids = _on(dev, ids_of(rng))
+    shape = (ids.numel(),) if m == 1 else (ids.numel(), m)
+    vals = _on(dev, rng.uniform(0.5, 2.0, shape).astype(np.float32))
+    got = sc.scatter_add(ids, vals, 196_049)
+    # a segment of 180,000 values summed in f32: the plain version's
+    # index_add_ in no fixed order is held at chip_smoke's RTOL, 1e-4; the
+    # kernel against the same sum in f64 at 1e-5
+    _sums_close(got, sc.scatter_add_plain(ids, vals, 196_049), 1e-4)
+    f64 = torch.zeros(got.shape, dtype=torch.float64, device=dev)
+    keep = (ids >= 0) & (ids < 196_049)
+    _sums_close(got, f64.index_add_(0, ids[keep], vals[keep].double()))
+    for _ in range(9):
+        assert torch.equal(_scan_bits(sc.scatter_add(ids, vals, 196_049)),
+                           _scan_bits(got))
+
+
+def test_scatter_add_repeated_launches_bit_equal(dev, rng):
+    """The census shape: 1,710,918 ids into 196,049 bins, 10 launches."""
+    ids = _on(dev, rng.integers(0, 196_049, 1_710_918))
+    vals = _on(dev, rng.uniform(0.5, 2.0, 1_710_918).astype(np.float32))
+    first = _scan_bits(sc.scatter_add(ids, vals, 196_049))
+    for _ in range(9):
+        assert torch.equal(_scan_bits(sc.scatter_add(ids, vals, 196_049)),
+                           first)
+
+
+@pytest.mark.parametrize("m", [1, 40])
+def test_scatter_add_segment_bits_unchanged_by_other_rows(dev, rng, m):
+    """Rows of other segments inserted anywhere leave a segment's bits as
+    they were: its rows keep their order, and it is summed alone (a long
+    segment too, in chunks counted from its own first row)."""
+    s, extra = 3_000, 5_000
+    ids = rng.integers(0, s, 40_000)
+    ids[:1000] = 7  # one segment longer than a reduce chunk
+    shape = (40_000,) if m == 1 else (40_000, m)
+    vals = rng.normal(size=shape).astype(np.float32)
+    alone = sc.scatter_add(_on(dev, ids), _on(dev, vals), s)
+    for k in (1, 100, 30_000):
+        others = rng.integers(s, s + extra, k)
+        at = np.sort(rng.integers(0, ids.size + 1, k))
+        big_ids = np.insert(ids, at, others)
+        big_vals = np.insert(vals, at, rng.normal(
+            size=(k,) + shape[1:]).astype(np.float32), axis=0)
+        got = sc.scatter_add(_on(dev, big_ids), _on(dev, big_vals),
+                             s + extra)
+        assert torch.equal(_scan_bits(got[:s]), _scan_bits(alone))
+
+
+def test_scatter_add_library_layout_matches_wrapper(dev):
+    sc._check_layout()
 
 
 @pytest.mark.parametrize("id_dtype", [np.int32, np.int64])

@@ -63,6 +63,59 @@ def test_segstats_negative_and_empty_segments():
     assert np.all(out[1:5] == 0) and np.all(out[6:9] == 0)
 
 
+def _nan_inf_case(rng, n=600, s=150):
+    """Sorted ids with sentinels (>= S, the oracle's kind) at the end; NaN
+    and +-inf at in-range positions."""
+    ids = np.sort(np.concatenate([rng.integers(0, s, n),
+                                  np.full(5, s + 1)])).astype(np.int32)
+    vals = rng.normal(size=ids.size).astype(np.float32)
+    inside = np.flatnonzero((ids >= 0) & (ids < s))
+    pick = rng.choice(inside, size=30, replace=False)
+    vals[pick[:10]] = np.nan
+    vals[pick[10:20]] = np.inf
+    vals[pick[20:]] = -np.inf
+    return ids, vals, s
+
+
+def test_segstats_plain_keeps_nan_and_inf_like_the_oracle(rng):
+    """A segment holding a NaN has NaN sum, min, max and sumsq, as in the
+    oracle, and no other segment does; infinities behave as in f32
+    arithmetic."""
+    ids, vals, s = _nan_inf_case(rng)
+    got = ss.segstats(_t(ids), _t(vals), s).numpy()
+    want = _ref_segstats(ids, vals, s)
+    assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[:, 2]).sum() == len(np.unique(ids[np.isnan(vals)]))
+    finite = ~np.isnan(want)
+    assert_allclose(got[finite], want[finite], rtol=1e-5, atol=1e-5)
+
+
+def test_segstats_plain_sentinel_nan_reaches_no_segment(rng):
+    """A sentinel contributes nothing, NaN included.  (The oracle's
+    ``vals * 0`` for a sentinel would put its NaN into segment 0's sum and
+    sumsq.)"""
+    ids, vals, s = _nan_inf_case(rng)
+    with_nan = vals.copy()
+    with_nan[-1] = np.nan
+    assert ids[-1] >= s
+    assert_array_equal(ss.segstats(_t(ids), _t(with_nan), s).numpy(),
+                       ss.segstats(_t(ids), _t(vals), s).numpy())
+
+
+def test_segstats_plain_count_min_max_match_pallas_with_nan(rng):
+    """Count, min and max agree with the Pallas kernel, NaN for NaN.  Its
+    sums do not: its one-hot contraction multiplies every value by 0 or 1,
+    so a NaN reaches the sum and sumsq of every row."""
+    ids, vals, s = _nan_inf_case(rng)
+    got = ss.segstats(_t(ids), _t(vals), s).numpy()
+    pallas = np.asarray(rops.segstats(jnp.asarray(ids), jnp.asarray(vals), s))
+    cols = [1, 2, 3]
+    assert_array_equal(np.isnan(got[:, cols]), np.isnan(pallas[:, cols]))
+    assert_array_equal(np.nan_to_num(got[:, cols]),
+                       np.nan_to_num(pallas[:, cols]))
+    assert np.isnan(pallas[:, 0]).all()
+
+
 # ---------------------------------------------------------------------------
 # blockscan
 # ---------------------------------------------------------------------------
@@ -180,6 +233,27 @@ def test_scatter_add_one_dimensional_values(rng):
     np.add.at(want, ids, vals.astype(np.float64))
     assert got.shape == (5,)
     assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,passes", [
+    (1, ((0, 1),)), (511, ((0, 9),)), (512, ((0, 9), (9, 1))),
+    (196_049, ((0, 9), (9, 9))), (2 ** 18, ((0, 9), (9, 9), (18, 1))),
+    (2 ** 31 - 1, ((0, 9), (9, 9), (18, 9), (27, 4)))])
+def test_scatter_add_radix_plan_covers_the_key_bits(s, passes):
+    """Keys lie in [0, S] (S is the sentinels' key), so a plan covers
+    bit_length(S) bits in 9-bit digits, over 2,048-row tiles."""
+    assert sc.radix_plan(1_710_918, s) == (passes, 836)
+    assert sc.radix_plan(0, s)[1] == 0
+
+
+@pytest.mark.parametrize("n,s,match", [(2 ** 31, 10, "fewer than 2"),
+                                       (10, 2 ** 31, "outside"),
+                                       (-1, 10, "fewer than 2")])
+def test_scatter_add_rejects_sizes_past_32_bits(n, s, match):
+    """The kernels keep keys, rows and offsets in 32 bits: the wrapper's
+    plan raises a clear error beyond them."""
+    with pytest.raises(ValueError, match=match):
+        sc.radix_plan(n, s)
 
 
 @pytest.mark.parametrize("id_dtype", [np.int32, np.int64])
