@@ -22,9 +22,11 @@ read just after:
 4. ``determinism`` — one inclusive column scanned alone and inside the
    main path's batch gives bitwise-equal results; 10 launches of
    ``blockscan`` on each of the main path's scan inputs, of ``segstats`` on
-   its input and of the float ``scatter_add`` at the census shape give
-   equal bits; and a ``segstats`` profile, and the census segments of the
-   ``scatter_add``, give the same bits alone and among others.
+   its input, of the float ``scatter_add`` at the census shape and of the
+   ``histogram`` on the census ids give equal bits; the census counted
+   right after a call with another S on the same stream is right; and a
+   ``segstats`` profile, and the census segments of the ``scatter_add``,
+   give the same bits alone and among others.
    ``combine_repeats`` — the integer workload's 48 profiles through
    ``fused_transform`` with a CUDA ``DeviceAggregator`` on a unified tree
    of the main path's context count, remapped many to one with placeholder
@@ -56,8 +58,12 @@ read just after:
     calls ran (``device_kernels``), which must all be the port's own, and
     their durations alone per call (``kernel_ms``, no gaps between them).
     ``segstats`` is also held on its input with NaN and infinities put in
-    (``nan_case``); the float ``scatter_add`` at the census shape, at 40
-    columns and on a skewed input (90% of 200,000 rows in one segment).
+    (``nan_case``); the ``histogram`` on the path's int32 census ids
+    (``histogram_i32``), on the same ids as int64 (``histogram``), on the
+    skewed ids and on the census ids moved past S (``histogram_dropped``,
+    nothing counted), each one kernel a call; the float ``scatter_add`` at
+    the census shape, at 40 columns and on a skewed input (90% of 200,000
+    rows in one segment).
 
 Every line before the last is one JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero without
@@ -492,6 +498,18 @@ def scatter_add_alone_among_others(sc, ids, vals, n_bins) -> bool:
     return bool(torch.equal(_bits(among[:n_bins]), _bits(alone)))
 
 
+def histogram_after_other_size(sc, ids, n_bins) -> bool:
+    """The census ids counted right after a call with another S on the same
+    stream (fewer bins, then more) give the plain version's counts."""
+    import torch
+    want = sc.histogram_plain(ids, n_bins)
+    same = True
+    for other in (7, 2 * n_bins + 1):
+        sc.histogram_cuda(ids, other)
+        same &= torch.equal(sc.histogram_cuda(ids, n_bins), want)
+    return same
+
+
 def repeated_launches(fn, times: int = 10) -> bool:
     """``fn`` run ``times`` times gives the same bits each time."""
     import torch
@@ -798,8 +816,21 @@ def main() -> int:
         ids, vals, n_seg = rec.args("segstats")
         (xf,) = rec.args("blockscan_f32")
         (xi,) = rec.args("blockscan_i64")
-        hids, n_bins = rec.args("histogram")
+        hids, n_bins = rec.args("histogram")  # int32, as the path gives them
+        h64 = hids.long()
         src = "src/repro_torch/csrc/"
+        # inputs off the path, from one generator: the float scatter-add's
+        # values (M = 1 and 40), then the skewed ids and their values
+        frng = np.random.default_rng(SEED_FLOAT)
+        fvals = torch.from_numpy(frng.uniform(
+            0.5, 2.0, hids.numel()).astype(np.float32)).cuda()
+        f40 = torch.from_numpy(frng.uniform(
+            0.5, 2.0, (hids.numel(), 40)).astype(np.float32)).cuda()
+        sk_ids = frng.integers(0, n_bins, SKEW_ROWS)
+        sk_ids[frng.random(SKEW_ROWS) < SKEW_SHARE] = n_bins // 2
+        sk_ids = torch.from_numpy(sk_ids).cuda()
+        sk_vals = torch.from_numpy(frng.uniform(
+            0.5, 2.0, SKEW_ROWS).astype(np.float32)).cuda()
         entries = [
             kernel_entry(
                 "segstats", src + "segstats.cu",
@@ -819,31 +850,31 @@ def main() -> int:
                 lambda: bs.blockscan_cuda(xi), lambda: bs.blockscan_plain(xi),
                 lambda: torch.cumsum(xi, 0), 2 * 8 * xi.numel(), xi.numel(),
                 True),
-            kernel_entry(
-                "histogram", src + "scatter_add.cu",
-                "src/repro/kernels/scatter_add.py:41", counts["histogram"],
-                lambda: sc.histogram_cuda(hids, n_bins),
-                lambda: sc.histogram_plain(hids, n_bins),
-                lambda: torch.bincount(hids, minlength=n_bins),
-                hids.element_size() * hids.numel() + 8 * n_bins,
-                hids.numel(), True),
         ]
+        # the census histogram on the path's int32 ids, on the same ids as
+        # int64 (the shape of earlier runs), on the skewed ids, and on ids
+        # that are all out of range (the floor of reading and zeroing)
+        for name, hi, on_path in (("histogram", h64, False),
+                                  ("histogram_i32", hids, True),
+                                  ("histogram_skewed", sk_ids, False),
+                                  ("histogram_dropped", hids + n_bins, False)):
+            entries.append(kernel_entry(
+                name, src + "scatter_add.cu",
+                "src/repro/kernels/scatter_add.py:41", counts["histogram"],
+                lambda i=hi: sc.histogram_cuda(i, n_bins),
+                lambda i=hi: sc.histogram_plain(i, n_bins),
+                lambda i=hi: torch.bincount(i, minlength=n_bins)[:n_bins],
+                hi.element_size() * hi.numel() + 8 * n_bins, hi.numel(),
+                True, on_path=on_path))
+            require(len(entries[-1]["device_kernels"]) == 1,
+                    f"{name}: one call ran {entries[-1]['device_kernels']}, "
+                    f"not one kernel")
         entries[0]["nan_case"] = segstats_nan_case(ss, ids, vals, n_seg)
         # the float scatter-add is off the path: held at the census shape,
         # at 40 columns, and on a skewed input, each against its plain
         # version and index_add_
-        frng = np.random.default_rng(SEED_FLOAT)
-        fvals = torch.from_numpy(frng.uniform(
-            0.5, 2.0, hids.numel()).astype(np.float32)).cuda()
-        f40 = torch.from_numpy(frng.uniform(
-            0.5, 2.0, (hids.numel(), 40)).astype(np.float32)).cuda()
-        sk_ids = frng.integers(0, n_bins, SKEW_ROWS)
-        sk_ids[frng.random(SKEW_ROWS) < SKEW_SHARE] = n_bins // 2
-        sk_ids = torch.from_numpy(sk_ids).cuda()
-        sk_vals = torch.from_numpy(frng.uniform(
-            0.5, 2.0, SKEW_ROWS).astype(np.float32)).cuda()
-        for name, sids, sv in (("scatter_add", hids, fvals),
-                               ("scatter_add_m40", hids, f40),
+        for name, sids, sv in (("scatter_add", h64, fvals),
+                               ("scatter_add_m40", h64, f40),
                                ("scatter_add_skewed", sk_ids, sk_vals)):
             m = 1 if sv.dim() == 1 else sv.shape[1]
             entries.append(kernel_entry(
@@ -877,11 +908,15 @@ def main() -> int:
                "segstats_repeats_equal": repeated_launches(
                    lambda: ss.segstats_cuda(ids, vals, n_seg)),
                "scatter_add_repeats_equal": repeated_launches(
-                   lambda: sc.scatter_add_cuda(hids, fvals, n_bins)),
+                   lambda: sc.scatter_add_cuda(h64, fvals, n_bins)),
+               "histogram_repeats_equal": repeated_launches(
+                   lambda: sc.histogram_cuda(hids, n_bins)),
+               "histogram_after_other_size_equal": histogram_after_other_size(
+                   sc, hids, n_bins),
                "segstats_alone_equal": segstats_alone_among_others(
                    ss, ids, vals, n_seg),
                "scatter_add_alone_equal": scatter_add_alone_among_others(
-                   sc, hids, fvals, n_bins)}
+                   sc, h64, fvals, n_bins)}
         emit({"determinism": det})
         require(det["inclusive_equal"] and det["scan_equal"],
                 f"a column's result depends on its batch: {det}")

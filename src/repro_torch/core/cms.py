@@ -119,25 +119,29 @@ def census(pms: PMSReader, n_ctx: int, compute: str = "device",
     """Per-context (x_c, m_c): total values and distinct non-empty metrics.
 
     ``compute="device"`` counts x_c with the ``histogram`` kernel on
-    ``device`` (int64 counts: byte-identical to the numpy count).
+    ``device`` (int64 counts: byte-identical to the numpy count).  The
+    concatenated row ids are int32 below 2^31 contexts, as the reference
+    hands them to its kernel, so the copy to the card is half as large.
     """
     key_chunks: list[np.ndarray] = []
     uniq = np.empty(0, dtype=np.uint64)
     row_chunks: list[np.ndarray] = []
+    row_type = np.int32 if n_ctx < 2 ** 31 else np.int64
     for pid in range(pms.n_profiles):
         sm = pms.plane(pid)
-        rows, mids, _ = sm.triplets()
+        rows = np.repeat(sm.ctx.astype(row_type),
+                         np.diff(sm.start.astype(np.int64)))
         if rows.size == 0:
             continue
-        row_chunks.append(rows.astype(np.int64))
-        key_chunks.append((rows.astype(np.uint64) << np.uint64(16)) | mids.astype(np.uint64))
+        row_chunks.append(rows)
+        key_chunks.append((rows.astype(np.uint64) << np.uint64(16)) | sm.mid.astype(np.uint64))
         if sum(k.size for k in key_chunks) > 1 << 22:
             uniq = np.unique(np.concatenate([uniq] + key_chunks))
             key_chunks = []
     if key_chunks:
         uniq = np.unique(np.concatenate([uniq] + key_chunks))
     rows_all = (np.concatenate(row_chunks) if row_chunks
-                else np.empty(0, np.int64))
+                else np.empty(0, row_type))
     if compute == "device":
         from repro_torch.kernels import batch
         x_c = batch.device_census_counts(rows_all, n_ctx, device)

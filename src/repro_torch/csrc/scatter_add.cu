@@ -7,7 +7,9 @@
 // histogram: counts[s] = #{i : ids[i] == s} as int64, ids int32 or int64,
 //   ids outside [0, S) dropped.  Integer atomicAdd is exact and its result
 //   does not depend on the order the adds land in, so the count needs no
-//   f32 exactness guard.
+//   f32 exactness guard.  One launch, which zeroes the counts behind a
+//   barrier, reads the ids in 16-byte loads and adds each run of equal
+//   neighbouring ids once (see "The histogram" below).
 //
 // scatter-add: out[s, :] = sum of vals[i, :] over ids[i] == s, f32, with
 //   every segment's rows added in ascending row order, so the result never
@@ -65,23 +67,6 @@ constexpr int kChunk = 128;                    // rows a reduce chunk
 constexpr int kCols = 4;                       // columns a reduce thread
 static_assert(kMaxBuckets == 2 * kThreads, "a thread owns two digits");
 constexpr unsigned kFull = 0xffffffffu;
-
-template <typename I>
-__global__ void histogram_kernel(const I* __restrict__ ids, int64_t n,
-                                 int64_t num_bins,
-                                 unsigned long long* __restrict__ counts) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t s = (int64_t)ids[i];
-    if (s >= 0 && s < num_bins) atomicAdd(counts + s, 1ull);
-  }
-}
-
-int grid_for(int64_t n) {
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  return (int)(blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16);
-}
 
 // The sort key of an id: itself in [0, S), else S.  Keys of a later pass
 // (uint32, already in [0, S]) map to themselves.
@@ -349,6 +334,251 @@ seg_sums(const int32_t* __restrict__ rows, const float* __restrict__ vals,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The histogram: counts[s] = #{i : ids[i] == s} for s in [0, S), int64.
+//
+// What bounds it on this card: bytes, the ids read once and the counts
+// written once (8.4 MB for the census's 1,710,918 int32 ids into 196,049
+// counts), and the latency of one wave.  The design:
+//
+// * One launch zeroes the counts and counts.  A block loads its first
+//   tile, then zeroes (zero_counts), then counts, so the read overlaps the
+//   zeroing and the barrier behind it.
+// * Streamed reads: a tile is kHistThreads * kHistRows 16-byte vectors
+//   (1,024 int64 or 2,048 int32 ids); warp w of a block takes kHistRows
+//   rows of 32 vectors, one 16-byte load a lane a row, all issued before
+//   the first atomic: a contiguous chunk of 32 * kHistRows * V ids (V ids
+//   a vector).  A view that starts off a 16-byte boundary is read from the
+//   boundary below it, its partial vectors id by id.
+// * Equal neighbours merged before the atomic: within a warp's chunk a run
+//   of equal ids adds its length once, at its last id, so a sorted input
+//   costs one atomic a run and not one an id (the census: runs of ~8).
+//   The adds' results are unused, so they compile to REDG, not ATOMG.
+// Integer addition is exact and does not depend on order, so the counts
+// are the same bits whatever order the adds land in.
+// ---------------------------------------------------------------------------
+using u64 = unsigned long long;
+constexpr int kHistThreads = 256;
+constexpr int kHistRows = 2;      // 16-byte loads a lane keeps in flight
+constexpr int kZeroWords = 2048;  // counts a zeroing chunk (16 KB)
+
+template <typename I> struct Vec16;
+template <> struct Vec16<int32_t> {
+  using T = int4;
+  static constexpr int kN = 4;
+  __device__ static void unpack(const int4& v, int32_t (&x)[4]) {
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  }
+};
+template <> struct Vec16<int64_t> {
+  using T = longlong2;
+  static constexpr int kN = 2;
+  __device__ static void unpack(const longlong2& v, int64_t (&x)[2]) {
+    x[0] = v.x, x[1] = v.y;
+  }
+};
+
+__device__ __forceinline__ u64 ld_acquire(const u64* p) {
+  u64 v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ u64 ld_relaxed(const u64* p) {
+  u64 v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release(u64* p, u64 v) {
+  asm volatile("red.release.gpu.global.add.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// Vector k of the aligned array covers ids [k * V - head, k * V - head + V);
+// one wholly inside [0, n) is one 16-byte load, a partial one (the head
+// and the tail of the array) is loaded id by id; ids outside are 0 and are
+// never counted.
+template <typename I>
+__device__ __forceinline__ void load_rows(const I* __restrict__ ids,
+                                          int64_t n, int head, int64_t k0,
+                                          I (&x)[kHistRows][Vec16<I>::kN]) {
+  constexpr int V = Vec16<I>::kN;
+  using T = typename Vec16<I>::T;
+  const T* vec = reinterpret_cast<const T*>(
+      reinterpret_cast<uintptr_t>(ids) & ~uintptr_t(15));
+#pragma unroll
+  for (int u = 0; u < kHistRows; ++u) {
+    const int64_t k = k0 + u * 32;
+    const int64_t e0 = k * V - head;
+    if (e0 >= 0 && e0 + V <= n) {
+      Vec16<I>::unpack(__ldg(vec + k), x[u]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int64_t e = e0 + j;
+        x[u][j] = e >= 0 && e < n ? ids[e] : I(0);
+      }
+    }
+  }
+}
+
+// One warp's chunk, ids [e0, e0 + 32 * kHistRows * V) of which those in
+// [0, n) count (all of them when kWhole).  Position q = (row * 32 + lane)
+// * V + j.  A head is a position whose left neighbour in the chunk differs
+// or is missing, a tail one whose right neighbour does; the tail of a run
+// adds q - (its head) + 1.  A run's head is the last head at or before its
+// tail: in the lane, in a lower lane of the row (a ballot of the lanes
+// holding heads and a shuffle of the highest one's last head), or in an
+// earlier row (`open`).
+template <typename I, bool kWhole>
+__device__ __forceinline__ void count_rows(
+    const I (&x)[kHistRows][Vec16<I>::kN], int64_t e0, int64_t n, int64_t S,
+    u64* __restrict__ counts, int lane) {
+  constexpr int V = Vec16<I>::kN;
+  constexpr int kLen = 32 * kHistRows * V;
+  int open = 0;
+#pragma unroll
+  for (int u = 0; u < kHistRows; ++u) {
+    // the left neighbour of a lane's first id is the previous lane's last
+    // (for lane 0, lane 31's of the previous row); the right neighbour of
+    // its last id the next lane's first (for lane 31, lane 0's of the next
+    // row): one shuffle each
+    I give = x[u][V - 1];
+    if (u > 0 && lane == 31) give = x[u - 1][V - 1];
+    const I left = __shfl_sync(kFull, give, (lane + 31) & 31);
+    I take = x[u][0];
+    if (u + 1 < kHistRows && lane == 0) take = x[u + 1][0];
+    const I right = __shfl_sync(kFull, take, (lane + 1) & 31);
+    const int q0 = (u * 32 + lane) * V;
+    unsigned heads = 0, tails = 0;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int q = q0 + j;
+      const I prev = j > 0 ? x[u][j - 1] : left;
+      const I next = j + 1 < V ? x[u][j + 1] : right;
+      bool head = q == 0 || x[u][j] != prev;
+      bool tail = q == kLen - 1 || x[u][j] != next;
+      if (!kWhole) {
+        const int64_t e = e0 + q;
+        const bool valid = e >= 0 && e < n;
+        head = valid && (head || e == 0);
+        tail = valid && (tail || e == n - 1);
+      }
+      heads |= (unsigned)head << j;
+      tails |= (unsigned)tail << j;
+    }
+    const unsigned holders = __ballot_sync(kFull, heads != 0);
+    const unsigned below = holders & ((1u << lane) - 1);
+    const int last = heads ? q0 + 31 - __clz(heads) : 0;
+    const int from = __shfl_sync(kFull, last, below ? 31 - __clz(below) : 0);
+    int start = below ? from : open;
+    if (holders) open = __shfl_sync(kFull, last, 31 - __clz(holders));
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if ((heads >> j) & 1) start = q0 + j;
+      const I id = x[u][j];
+      if (((tails >> j) & 1) && (uint64_t)(int64_t)id < (uint64_t)S)
+        atomicAdd(counts + id, (u64)(q0 + j - start + 1));
+    }
+  }
+}
+
+// Zero the counts, then return once all of them are zero.  `bar` is this
+// call's (claims, done) pair, zero when the call starts; block 0 zeroes
+// `next`, the other pair, for the next call on the stream (the call before,
+// which used it, has ended).  A block claims 16-KB chunks from `claims`,
+// zeroes each and adds one to `done` with a release after its stores, until
+// the chunks run out; then it waits for `done` to reach the chunk count.
+// The first `chunks` blocks claim at once (without reading the counter
+// first); the others only after a first wait, so few contend for the
+// counter, and any block that waits takes what is left, so no block waits
+// for a block that is not running: the barrier cannot deadlock, whatever
+// the grid and whatever else the card runs.
+__device__ __forceinline__ void zero_counts(u64* __restrict__ counts,
+                                            int64_t S, u64* bar, u64* next,
+                                            int64_t chunks) {
+  __shared__ int64_t s_chunk;
+  if (blockIdx.x == 0 && threadIdx.x < 2) next[threadIdx.x] = 0ull;
+  bool eager = blockIdx.x < chunks, first = eager;
+  for (;;) {
+    if (threadIdx.x == 0) {
+      int64_t c = -1;
+      for (;;) {
+        if (eager && (first || ld_relaxed(bar) < (u64)chunks)) {
+          first = false;
+          const u64 got = atomicAdd(bar, 1ull);
+          if (got < (u64)chunks) {
+            c = (int64_t)got;
+            break;
+          }
+        }
+        if (ld_acquire(bar + 1) >= (u64)chunks) break;
+        __nanosleep(eager ? 32 : 512);
+        eager = true;
+      }
+      s_chunk = c;
+    }
+    __syncthreads();
+    const int64_t c = s_chunk;
+    if (c < 0) break;
+    const int64_t lo = c * kZeroWords;
+    const int64_t hi = S < lo + kZeroWords ? S : lo + kZeroWords;
+    if (hi - lo == kZeroWords) {
+      ulonglong2* p = reinterpret_cast<ulonglong2*>(counts + lo);
+      for (int k = threadIdx.x; k < kZeroWords / 2; k += kHistThreads)
+        p[k] = make_ulonglong2(0ull, 0ull);
+    } else {
+      for (int64_t k = lo + threadIdx.x; k < hi; k += kHistThreads)
+        counts[k] = 0ull;
+    }
+    __syncthreads();  // the block's stores, then one release of them all
+    if (threadIdx.x == 0) red_release(bar + 1, 1ull);
+  }
+}
+
+// The tiles are taken grid-stride.
+template <typename I>
+__global__ void __launch_bounds__(kHistThreads)
+histogram_kernel(const I* __restrict__ ids, int64_t n, int64_t S,
+                 u64* __restrict__ counts, u64* bar, u64* next,
+                 int64_t chunks) {
+  constexpr int V = Vec16<I>::kN;
+  constexpr int kTile = kHistThreads * kHistRows;
+  const int lane = threadIdx.x & 31;
+  const int64_t warp_at = (int64_t)(threadIdx.x >> 5) * 32 * kHistRows;
+  const int head = (int)((reinterpret_cast<uintptr_t>(ids) & 15) / sizeof(I));
+  const int64_t tiles = ((n + head + V - 1) / V + kTile - 1) / kTile;
+  I x[kHistRows][V];
+  load_rows(ids, n, head, blockIdx.x * (int64_t)kTile + warp_at + lane, x);
+  zero_counts(counts, S, bar, next, chunks);
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    if (t != blockIdx.x) load_rows(ids, n, head, t * kTile + warp_at + lane, x);
+    const int64_t e0 = (t * kTile + warp_at) * V - head;
+    if (e0 >= 0 && e0 + 32 * kHistRows * V <= n)
+      count_rows<I, true>(x, e0, n, S, counts, lane);
+    else
+      count_rows<I, false>(x, e0, n, S, counts, lane);
+  }
+}
+
+constexpr int kErrPlan = -1;
+
+template <typename I>
+int histogram_launch(const I* ids, int64_t n, int64_t S, int64_t* counts,
+                     u64* sync, int parity, int64_t chunks, int grid,
+                     void* stream) {
+  if (S <= 0) return (int)cudaGetLastError();
+  if (chunks != (S + kZeroWords - 1) / kZeroWords || grid < 1)
+    return kErrPlan;
+  histogram_kernel<I><<<grid, kHistThreads, 0, (cudaStream_t)stream>>>(
+      ids, n, S, reinterpret_cast<u64*>(counts), sync + 2 * (parity & 1),
+      sync + 2 * (1 - (parity & 1)), chunks);
+  return (int)cudaGetLastError();
+}
+
 unsigned blocks_for(int64_t threads) {
   return (unsigned)((threads + kThreads - 1) / kThreads);
 }
@@ -378,29 +608,43 @@ int scatter_pass(const I* keys, const int32_t* rows, int64_t n, int64_t S,
 
 }  // namespace
 
-// Each launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int histogram_i32(const int32_t* ids, int64_t n, int64_t num_bins,
-                             int64_t* counts, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t zeroed =
-      cudaMemsetAsync(counts, 0, sizeof(int64_t) * num_bins, st);
-  if (zeroed != cudaSuccess) return (int)zeroed;
-  if (n > 0)
-    histogram_kernel<int32_t><<<grid_for(n), kThreads, 0, st>>>(
-        ids, n, num_bins, (unsigned long long*)counts);
-  return (int)cudaGetLastError();
+// (16-byte vectors a histogram tile, counts a zeroing chunk, histogram
+// blocks the card holds at once); returns cudaGetLastError() or the
+// occupancy query's error.
+extern "C" int histogram_layout(int64_t* out) {
+  int dev = 0, sms = 0, a = 0, b = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &a, histogram_kernel<int32_t>, kHistThreads, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b, histogram_kernel<int64_t>, kHistThreads, 0);
+  out[0] = kHistThreads * kHistRows;
+  out[1] = kZeroWords;
+  out[2] = (int64_t)sms * (a < b ? a : b);
+  return (int)err;
 }
 
-extern "C" int histogram_i64(const int64_t* ids, int64_t n, int64_t num_bins,
-                             int64_t* counts, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t zeroed =
-      cudaMemsetAsync(counts, 0, sizeof(int64_t) * num_bins, st);
-  if (zeroed != cudaSuccess) return (int)zeroed;
-  if (n > 0)
-    histogram_kernel<int64_t><<<grid_for(n), kThreads, 0, st>>>(
-        ids, n, num_bins, (unsigned long long*)counts);
-  return (int)cudaGetLastError();
+// counts[s] = #{i : ids[i] == s} for s in [0, S), ids outside [0, S)
+// dropped: one launch on `stream` that zeroes the counts and counts.
+// `sync` is four u64, zero when allocated and used by this stream alone;
+// `parity` is the number of calls made on it before, mod 2.  `chunks` must
+// be ceil(S / 2048) and grid >= 1, else kErrPlan; otherwise returns
+// cudaGetLastError().  S == 0 launches nothing.
+extern "C" int histogram_i32(const int32_t* ids, int64_t n, int64_t S,
+                             int64_t* counts, u64* sync, int parity,
+                             int64_t chunks, int grid, void* stream) {
+  return histogram_launch(ids, n, S, counts, sync, parity, chunks, grid,
+                          stream);
+}
+extern "C" int histogram_i64(const int64_t* ids, int64_t n, int64_t S,
+                             int64_t* counts, u64* sync, int parity,
+                             int64_t chunks, int grid, void* stream) {
+  return histogram_launch(ids, n, S, counts, sync, parity, chunks, grid,
+                          stream);
 }
 
 // (rows a radix tile, digit bits a pass, rows a reduce chunk)

@@ -18,7 +18,8 @@ Three hot loops route here:
   kernel, one launch per profile at its real size.
 * **CMS stripe offsets / census** — the §4.3.2 exclusive scan runs through
   ``ops.exclusive_scan`` on int64 and the census through ``ops.histogram``
-  with int64 counts: both exact, so CMS bytes never depend on the backend.
+  on int32 ids with int64 counts: both exact, so CMS bytes never depend on
+  the backend.
 
 Dtype contract: values travel to the device as f32; the combine sums in
 f32, the inclusive scan sums in f64 and stores its prefixes in f32.  A plane
@@ -279,9 +280,9 @@ def device_offsets(sizes: np.ndarray, device) -> np.ndarray:
 def device_census_counts(rows_all: np.ndarray, n_ctx: int, device
                          ) -> np.ndarray:
     """Per-context value counts (the CMS census x_c) by ``histogram`` on
-    ``device``, one launch over every profile's concatenated PMS rows:
-    int64 counts, byte-identical to ``np.bincount``."""
+    ``device``, one launch over every profile's concatenated PMS rows,
+    copied in their own type (int32 from the census, int64 past 2^31
+    contexts): int64 counts, byte-identical to ``np.bincount``."""
     dev = resolve_device(device)
-    ids = torch.from_numpy(
-        np.ascontiguousarray(rows_all, dtype=np.int64)).to(dev)
+    ids = torch.from_numpy(np.ascontiguousarray(rows_all)).to(dev)
     return ops.histogram(ids, int(n_ctx)).cpu().numpy()

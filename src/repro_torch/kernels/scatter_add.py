@@ -14,7 +14,10 @@ dropped.
   no float atomics are used (``csrc/scatter_add.cu``).
 * :func:`histogram_cuda`/:func:`histogram_plain` — per-id counts in int64,
   behind :func:`repro_torch.kernels.ops.histogram`.  Integer atomics are
-  exact, so the reference's 2^24 f32-count guard is gone.
+  exact, so the reference's 2^24 f32-count guard is gone.  One launch
+  zeroes the counts behind a barrier and adds each run of equal
+  neighbouring ids once; its barrier counters live in a buffer per (card,
+  stream), zeroed once (:class:`_Barrier`).
 """
 from __future__ import annotations
 
@@ -207,19 +210,93 @@ def scatter_add_plain(ids: torch.Tensor, vals: torch.Tensor,
     return out.index_add_(0, ids[keep], vals[keep].float())
 
 
+class _Barrier:
+    """The histogram's zeroing barrier on one stream (``csrc/
+    scatter_add.cu``): ``sync`` holds two (claims, done) counter pairs,
+    zero when allocated; call k uses pair k % 2 and zeroes the other for
+    call k + 1.  ``calls`` counts the calls enqueued on the stream, under
+    ``lock``."""
+
+    def __init__(self, device):
+        self.sync = torch.zeros(4, dtype=torch.int64, device=device)
+        self.calls = 0
+        self.lock = threading.Lock()
+
+
+_barriers: dict[tuple[int, int], _Barrier] = {}
+_hist_layout: tuple | None = None  # histogram_layout(), read once a process
+_HIST_ARGS = (_P, _L, _L, _P, _P, _I, _L, _I, _P)
+
+
+def _histogram_layout() -> tuple[int, int, int]:
+    """``(vectors a tile, counts a zeroing chunk, blocks the card holds at
+    once)`` from the library, once."""
+    global _hist_layout
+    if _hist_layout is None:
+        buf = (ctypes.c_int64 * 3)()
+        _build.check(_build.function("scatter_add", "histogram_layout",
+                                     (_build.PTR,))(ctypes.addressof(buf)),
+                     "histogram_layout")
+        _hist_layout = tuple(buf)
+    return _hist_layout
+
+
+def histogram_plan(n: int, num_segments: int, itemsize: int, address: int,
+                   layout: tuple[int, int, int]) -> tuple[int, int]:
+    """``(grid, zero_chunks)`` of the histogram launch over ``n`` ids of
+    ``itemsize`` bytes at ``address`` into ``num_segments`` counts, for
+    ``layout = (vectors a tile, counts a zeroing chunk, blocks the card
+    holds at once)``.  Tiles are counted in 16-byte vectors from the
+    boundary at or below ``address``; the grid is a block a tile or a
+    zeroing chunk, whichever is more, and at most what the card holds at
+    once.  Grid 0 (no launch) for ``num_segments == 0``."""
+    tile, chunk, resident = layout
+    if num_segments == 0:
+        return 0, 0
+    per_vector = 16 // itemsize
+    vectors = -(-(n + (address % 16) // itemsize) // per_vector) if n else 0
+    chunks = -(-num_segments // chunk)
+    return min(resident, max(-(-vectors // tile), chunks)), chunks
+
+
 def histogram_cuda(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """The CUDA histogram: int64 counts of int32 or int64 ids."""
-    if not _build.on_cuda(ids):
+    """The CUDA histogram: int64 counts of int32 or int64 ids (contiguous,
+    any alignment), ids outside ``[0, num_segments)`` dropped.  One launch
+    on the current stream zeroes the counts and counts; none for
+    ``num_segments == 0``."""
+    if ids.device.type != "cuda":
         raise ValueError("histogram_cuda takes a CUDA tensor")
     s = _check_ids(ids, num_segments, "histogram")
     counts = torch.empty(s, dtype=torch.int64, device=ids.device)
-    suffix = "i32" if ids.dtype == torch.int32 else "i64"
-    fn = _build.function("scatter_add", f"histogram_{suffix}",
-                         (_build.PTR, _build.I64, _build.I64, _build.PTR,
-                          _build.PTR))
-    with torch.cuda.device(ids.device):
-        status = fn(ids.data_ptr(), ids.numel(), s, counts.data_ptr(),
-                    _build.stream_of(ids))
+    n = ids.shape[0]
+    grid, chunks = histogram_plan(n, s, ids.element_size(), ids.data_ptr(),
+                                  _histogram_layout())
+    if grid == 0:
+        return counts
+    fn = _fn("histogram_i32" if ids.dtype == torch.int32 else "histogram_i64",
+             _HIST_ARGS)
+    device = ids.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    key = (device, stream)
+    bar = _barriers.get(key)
+    if bar is None:
+        with _scratch_lock:
+            bar = _barriers.setdefault(key, _Barrier(ids.device))
+    with bar.lock:
+        args = (ids.data_ptr(), n, s, counts.data_ptr(), bar.sync.data_ptr(),
+                bar.calls & 1, chunks, grid, stream)
+        if device == torch._C._cuda_getDevice():
+            status = fn(*args)
+        else:
+            with torch.cuda.device(device):
+                status = fn(*args)
+        if status == 0:
+            bar.calls += 1
+        else:  # whether the kernel ran is unknown: start a fresh barrier
+            _barriers.pop(key, None)
+    if status < 0:
+        raise RuntimeError(f"histogram: the plan ({grid} blocks, {chunks} "
+                           f"zeroing chunks) disagrees with the library")
     _build.check(status, "histogram")
     _build.launch_counts.add("histogram")
     return counts

@@ -322,3 +322,44 @@ def test_build_cms_device_matches_reference(tmp_path, rng):
     assert _digest(out) == want
     with rcms.CMSReader(out) as r:
         assert r.n_ctx > 0
+
+
+def test_census_hands_the_histogram_int32_ids(tmp_path, rng, monkeypatch):
+    """The census's concatenated row ids reach ``ops.histogram`` as int32,
+    as the reference casts them before its kernel, and x_c on the funnel is
+    byte-equal to the numpy path and to the reference's Pallas histogram
+    (interpret mode) on the same ids."""
+    import jax.numpy as jnp
+
+    from repro.kernels import ops as rops
+    from repro_torch.core.pms import PMSReader
+    from repro_torch.kernels import ops as pops
+    from tests.conftest import make_profile
+    paths = []
+    for i in range(4):
+        p = tmp_path / f"p{i}.rprf"
+        make_profile(rng, n_nodes=60, n_metrics=5, density=0.3, n_trace=5,
+                     identity={"rank": i}).save(p)
+        paths.append(str(p))
+    res = RAggregator(tmp_path / "ref",
+                      RConfig(executor="serial", compute="cpu")).run(paths)
+    seen = []
+    histogram = pops.histogram
+
+    def spy(ids, num_segments):
+        seen.append(ids.clone())
+        return histogram(ids, num_segments)
+
+    monkeypatch.setattr(pops, "histogram", spy)
+    with PMSReader(res.pms_path) as pms:
+        n_ctx = len(pms.tree.parent)
+        dev_x, dev_m = pcms.census(pms, n_ctx, compute="device",
+                                   device="cpu")
+        cpu_x, cpu_m = pcms.census(pms, n_ctx, compute="cpu")
+    assert len(seen) == 1 and seen[0].dtype == torch.int32
+    assert seen[0].numel() == int(cpu_x.sum()) > 0
+    assert dev_x.dtype == cpu_x.dtype == np.int64
+    assert dev_x.tobytes() == cpu_x.tobytes()
+    assert dev_m.tobytes() == cpu_m.tobytes()
+    pallas = np.asarray(rops.histogram(jnp.asarray(seen[0].numpy()), n_ctx))
+    assert_array_equal(dev_x, pallas.astype(np.int64))

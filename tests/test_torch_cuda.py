@@ -375,11 +375,104 @@ def test_scatter_add_library_layout_matches_wrapper(dev):
     sc._check_layout()
 
 
+def _hist_random(rng):
+    return rng.integers(-3, 5005, 100_000), 5000
+
+
+def _hist_census(rng):
+    """The CMS census's shape: 48 profiles' sorted rows concatenated, each
+    context repeated once per metric value (runs of 1-15, ~8 on average):
+    ~1.7M ids into 196,049 bins."""
+    s = 196_049
+    return np.concatenate([
+        np.repeat(np.sort(rng.choice(s, 4_500, replace=False)),
+                  rng.integers(1, 16, 4_500)) for _ in range(48)]), s
+
+
+def _hist_skewed(rng):
+    return _skewed(rng), 196_049
+
+
+def _hist_dropped(rng):
+    """Every id at or past S: nothing is counted."""
+    ids, s = _hist_census(rng)
+    return ids + s, s
+
+
+def _hist_negative(rng):
+    return -rng.integers(1, 1000, 50_000), 100
+
+
 @pytest.mark.parametrize("id_dtype", [np.int32, np.int64])
-def test_histogram_kernel_matches_plain(dev, rng, id_dtype):
-    ids = _on(dev, rng.integers(-3, 5005, 100000).astype(id_dtype))
-    assert torch.equal(ops.histogram(ids, 5000),
-                       sc.histogram_plain(ids, 5000))
+@pytest.mark.parametrize("ids_of", [_hist_random, _hist_census, _hist_skewed,
+                                    _hist_dropped, _hist_negative])
+def test_histogram_kernel_matches_plain(dev, rng, id_dtype, ids_of):
+    ids, s = ids_of(rng)
+    ids = _on(dev, ids.astype(id_dtype))
+    want = sc.histogram_plain(ids, s)
+    got = ops.histogram(ids, s)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    for _ in range(9):
+        assert torch.equal(ops.histogram(ids, s), want)
+
+
+@pytest.mark.parametrize("id_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("length", [1, 31, 32, 33, 1000])
+def test_histogram_runs_of_one_length(dev, rng, id_dtype, length):
+    """Sorted runs that cross a lane's vector, a row of 32 lanes and a
+    warp's chunk at every offset; the first and last ids out of range."""
+    ids = np.repeat(np.arange(-1, 40_000 // length + 1), length)[:40_000]
+    ids[-3:] = 10 ** 6
+    ids = _on(dev, ids.astype(id_dtype))
+    s = 40_000 // length
+    assert torch.equal(sc.histogram_cuda(ids, s), sc.histogram_plain(ids, s))
+
+
+@pytest.mark.parametrize("n", [0, 1, 5])
+@pytest.mark.parametrize("s", [0, 1, 2049])
+def test_histogram_empty_and_tiny(dev, n, s):
+    """No ids, or no bins: all-zero counts of length S, and no launch for
+    S = 0."""
+    ids = torch.zeros(n, dtype=torch.int64, device=dev)
+    before = _build.launch_counts.snapshot().get("histogram", 0)
+    got = sc.histogram_cuda(ids, s)
+    assert torch.equal(got, sc.histogram_plain(ids, s))
+    after = _build.launch_counts.snapshot().get("histogram", 0)
+    assert after - before == (1 if s else 0)
+
+
+@pytest.mark.parametrize("id_dtype,offset", [
+    (torch.int64, 1), (torch.int32, 1), (torch.int32, 2), (torch.int32, 3)])
+def test_histogram_unaligned_views(dev, rng, id_dtype, offset):
+    """A view that starts 4, 8 or 12 bytes past a 16-byte boundary, and
+    ends short of one."""
+    base = _on(dev, rng.integers(0, 3000, 100_003)).to(id_dtype)
+    ids = base[offset:offset + 99_997]
+    assert ids.data_ptr() % 16 == offset * ids.element_size()
+    assert torch.equal(sc.histogram_cuda(ids, 3000),
+                       sc.histogram_plain(ids, 3000))
+
+
+def test_histogram_interleaved_sizes_and_streams(dev, rng):
+    """Calls with another S right after each other on one stream, then on
+    two streams by turns: each stream's barrier counts stay in step."""
+    ids = _on(dev, _hist_census(rng)[0])
+    small = ids[:1000] % 7
+    want, want_small = (sc.histogram_plain(ids, 196_049),
+                        sc.histogram_plain(small, 7))
+    for _ in range(3):
+        assert torch.equal(sc.histogram_cuda(ids, 196_049), want)
+        assert torch.equal(sc.histogram_cuda(small, 7), want_small)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    got = []
+    for i in range(10):
+        with torch.cuda.stream(side if i % 2 else torch.cuda.current_stream()):
+            got.append(sc.histogram_cuda(ids if i % 3 else small,
+                                         196_049 if i % 3 else 7))
+    torch.cuda.synchronize()
+    for i, g in enumerate(got):
+        assert torch.equal(g, want if i % 3 else want_small)
 
 
 def test_wrappers_reject_bad_arguments(dev):
@@ -401,9 +494,11 @@ def test_wrappers_count_their_launches(dev):
     before = _build.launch_counts.snapshot()
     bs.blockscan(torch.ones(10, device=dev))
     ops.histogram(torch.zeros(10, dtype=torch.int64, device=dev), 2)
+    ops.histogram(torch.zeros(1_710_918, dtype=torch.int32, device=dev),
+                  196_049)
     after = _build.launch_counts.snapshot()
     assert after["blockscan_f32"] == before.get("blockscan_f32", 0) + 1
-    assert after["histogram"] == before.get("histogram", 0) + 1
+    assert after["histogram"] == before.get("histogram", 0) + 2
 
 
 def test_aggregator_on_card_matches_plain(dev, rng):

@@ -275,6 +275,38 @@ def test_histogram_drops_sentinels_and_counts_past_f32():
     assert_array_equal(got, [(1 << 24) + 1, 0])
 
 
+# (16-byte vectors a tile, counts a zeroing chunk, blocks resident at once):
+# the histogram's tile and chunk, and an H100 holding 6 blocks an SM
+_HIST_LAYOUT = (512, 2048, 132 * 6)
+
+
+@pytest.mark.parametrize("n,s,itemsize,address,want", [
+    # the census: 1,710,918 ids into 196,049 counts (96 zeroing chunks);
+    # int64 and int32 need more tiles than the card holds blocks
+    (1_710_918, 196_049, 8, 0, (792, 96)),
+    (1_710_918, 196_049, 4, 0, (792, 96)),
+    # the skewed input: 200,000 int64 ids, 8 bytes past a boundary
+    (200_000, 196_049, 8, 8, (196, 96)),
+    # a view 12 bytes past a boundary: one more vector, one more tile
+    (512 * 4, 5, 4, 0, (1, 1)),
+    (512 * 4, 5, 4, 12, (2, 1)),
+    # more zeroing chunks than tiles, and more of either than the card holds
+    (10, 10 ** 6, 4, 4, (489, 489)),
+    (10, 2 * 10 ** 6, 4, 4, (792, 977)),
+    (10 ** 8, 10, 4, 0, (792, 1)),
+    # no ids: one block zeroes; no counts: no launch
+    (0, 1, 8, 0, (1, 1)),
+    (0, 5, 4, 12, (1, 1)),
+    (7, 0, 8, 0, (0, 0)),
+    (0, 0, 4, 0, (0, 0)),
+])
+def test_histogram_plan_sizes_grid_and_zeroing(n, s, itemsize, address, want):
+    """The grid is a block a tile (counted in 16-byte vectors from the
+    boundary at or below the ids) or a zeroing chunk of 2,048 counts,
+    whichever is more, capped at what the card holds at once."""
+    assert sc.histogram_plan(n, s, itemsize, address, _HIST_LAYOUT) == want
+
+
 # ---------------------------------------------------------------------------
 # int8_quant
 # ---------------------------------------------------------------------------
