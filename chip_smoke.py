@@ -19,6 +19,16 @@ read just after:
    and the trace files must be byte-identical.
 3. ``exact_parity`` — an integer-valued workload of the same shape through
    both computes: ``db.pms``, ``db.cms`` and ``db.trc`` byte-identical.
+   ``analyze_processes`` — both workloads through ``--executor processes
+   --workers 4 --compute device --device cuda``: four spawned worker
+   processes, each with its own CUDA context, run ``segstats`` and the f32
+   ``blockscan``; the parent runs the census ``histogram`` and the int64
+   ``blockscan``.  The float databases must be byte-identical to phase 1's
+   ``threads`` run on the card, the integer ones to ``exact_parity``'s
+   numpy run; ``device_launches`` (parent plus workers) must show every
+   path kernel, the workers' share ``segstats`` and ``blockscan_f32``, the
+   parent's counters the rest.  The ``ranks`` driver runs no kernel (it
+   refuses ``--compute device``), so only the CPU tests drive it.
 4. ``determinism`` — one inclusive column scanned alone and inside the
    main path's batch gives bitwise-equal results; 10 launches of
    ``blockscan`` on each of the main path's scan inputs, of ``segstats`` on
@@ -82,6 +92,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import math
 import time
 from pathlib import Path
@@ -119,14 +130,50 @@ def sha(path) -> str:
         return hashlib.sha256(f.read()).hexdigest()
 
 
-def run_analyze(analyze, paths, out: Path, *flags) -> tuple[dict, float]:
+def run_analyze(analyze, paths, out: Path, *flags,
+                executor: str = "threads") -> tuple[dict, float]:
     """The port's CLI entry point, its JSON summary captured."""
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        analyze.main([*paths, "--out", str(out), "--executor", "threads",
+        analyze.main([*paths, "--out", str(out), "--executor", executor,
                       *flags])
     return json.loads(buf.getvalue()), time.perf_counter() - t0
+
+
+def _smi(query: str) -> list[list[str]]:
+    out = subprocess.run(["nvidia-smi", query,
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=10).stdout
+    return [ln.split(", ") for ln in out.splitlines() if ln.strip()]
+
+
+class ComputeApps:
+    """Samples ``nvidia-smi`` every half second while the block runs: the
+    compute processes (pid, MiB used), keeping the sample that lists the
+    most, and the card's used MiB, keeping the largest (``used_mib``)
+    beside the reading before the block (``used_mib_before``)."""
+
+    def __enter__(self):
+        self.most: list[list[str]] = []
+        self.used_mib_before = int(_smi("--query-gpu=memory.used")[0][0])
+        self.used_mib = self.used_mib_before
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.5):
+            rows = _smi("--query-compute-apps=pid,used_memory")
+            if len(rows) > len(self.most):
+                self.most = rows
+            self.used_mib = max(self.used_mib, int(
+                _smi("--query-gpu=memory.used")[0][0]))
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
 
 
 class Recorder:
@@ -510,6 +557,74 @@ def histogram_after_other_size(sc, ids, n_bins) -> bool:
     return same
 
 
+PROCESS_WORKERS = 4
+
+
+def analyze_processes_phase(analyze, fpaths, ipaths, work: Path,
+                            threads: dict, threads_wall: float,
+                            threads_counts: dict, numpy_int: dict) -> dict:
+    """``--executor processes`` on the card over both workloads: databases
+    against phase 1's ``threads`` summary (float) and ``exact_parity``'s
+    numpy summary (integer), and the launches of each kernel, in the parent
+    and in the workers."""
+    from repro_torch.kernels import _build
+    out = {"workers": PROCESS_WORKERS, "threads_wall_s": threads_wall,
+           "threads_timings": {k: threads["timings"].get(k) for k in
+                               ("phase1", "phase2", "cms", "total")}}
+    for name, paths, ref in (("float", fpaths, threads),
+                             ("int", ipaths, numpy_int)):
+        _build.launch_counts.reset()
+        with ComputeApps() as apps:
+            summ, wall = run_analyze(
+                analyze, paths, work / f"proc_{name}", "--compute", "device",
+                "--device", "cuda", "--workers", str(PROCESS_WORKERS),
+                executor="processes")
+        parent = _build.launch_counts.snapshot()
+        t = summ["timings"]
+        total, workers = t["device_launches"], t["device_launches_workers"]
+        same = {k: sha(summ[k]) == sha(ref[k]) for k in ("pms", "cms",
+                                                          "traces")}
+        out[name] = {
+            "wall_s": wall, "profiles": summ["profiles"],
+            **{k: t.get(k) for k in ("phase1", "phase2", "cms", "completion",
+                                     "total", "sink_peak", "funnel_launches",
+                                     "funnel_requests", "device_h2d",
+                                     "device_kernel", "device_d2h",
+                                     "phase2_first_result", "workers_used",
+                                     "worker_init_s", "worker_task_s",
+                                     "worker_peak_bytes")},
+            "launches": total, "launches_workers": workers,
+            "launches_parent": parent, "compute_apps_mib": apps.most,
+            "card_used_mib_before": apps.used_mib_before,
+            "card_used_mib_peak": apps.used_mib, "bytes_equal": same}
+        require(all(same.values()),
+                f"processes {name} databases differ: {same}")
+        require(all(parent.get(k, 0) == total[k] - workers.get(k, 0)
+                    for k in total),
+                f"processes {name}: device_launches {total} is not the "
+                f"parent's {parent} plus the workers' {workers}")
+        for k in ("segstats", "blockscan_f32"):
+            require(workers.get(k, 0) > 0,
+                    f"processes {name}: no worker launched {k}")
+        for k in ("histogram", "blockscan_i64"):
+            require(parent.get(k, 0) > 0 and workers.get(k, 0) == 0,
+                    f"processes {name}: {k} launched outside the parent")
+    # a worker propagates one profile a launch; threads coalesce concurrent
+    # profiles into shared launches, so only blockscan_f32 may differ
+    got = out["float"]["launches"]
+    out["threads_launches"] = threads_counts
+    out["equal_to_threads"] = {k: got.get(k, 0) == threads_counts.get(k, 0)
+                               for k in sorted({*got, *threads_counts})}
+    for k in ("segstats", "blockscan_i64", "histogram"):
+        require(got.get(k, 0) == threads_counts.get(k, 0),
+                f"processes launched {k} {got.get(k, 0)} times, threads "
+                f"{threads_counts.get(k, 0)}")
+    require(got.get("blockscan_f32", 0) == len(fpaths),
+            f"processes launched blockscan_f32 {got.get('blockscan_f32', 0)} "
+            f"times for {len(fpaths)} profiles")
+    return out
+
+
 def repeated_launches(fn, times: int = 10) -> bool:
     """``fn`` run ``times`` times gives the same bits each time."""
     import torch
@@ -810,6 +925,10 @@ def main() -> int:
         emit({"exact_parity": {"seed": SEED_INT, "device_wall_s": idev_wall,
                                "cpu_wall_s": icpu_wall, **same}})
         require(all(same.values()), f"integer databases differ: {same}")
+
+        # -- the processes executor: kernels in spawned workers
+        emit({"analyze_processes": analyze_processes_phase(
+            analyze, fpaths, ipaths, work, dev_sum, dev_wall, counts, icpu)})
 
         # -- 4. each kernel of the analyze path on its inputs, against its
         #    plain version (emitted with the int8_quant entry, after 9.)

@@ -11,7 +11,8 @@ writes metadata + summary statistics and generates the CMS file.
 
 Two phases, exactly as §4.4:
 
-* **phase 1** — parse context/identity sections, unify CCTs;
+* **phase 1** — parse context/identity sections, unify CCTs (the reduction
+  payload in multi-rank mode);
 * **phase 2** — parse metrics/traces, remap onto final context ids,
   propagate, accumulate, write.
 
@@ -22,13 +23,28 @@ default, or the kernels' plain PyTorch versions with ``device="cpu"``.
 ``compute="cpu"`` is the reference's numpy path, unchanged.  A missing card
 raises; nothing falls back.
 
-Execution substrate: the in-process :mod:`repro_torch.runtime` backends
-``serial`` and ``threads``.  Phase-1 uniquing serializes through one lock;
-everything downstream runs without shared mutable state.  The reference's
-``processes`` and ``ranks`` backends are not ported yet.
+Execution substrate — the :mod:`repro_torch.runtime` backends (paper §4.2 /
+§4.4):
 
-**Determinism contract:** both backends produce byte-identical PMS and CMS
-databases for the same inputs and config.  Three mechanisms pin this down:
+* ``serial`` / ``threads`` run both phases in-process; phase-1 uniquing
+  serializes through one lock while everything downstream runs without
+  shared mutable state;
+* ``processes`` shards profiles across worker processes: each worker
+  unifies a *local* CCT over its shard and the shard trees merge up a
+  reduction tree (§4.4 phase 1); phase-2 propagate/encode runs in workers,
+  which ship encoded planes back to the parent — a single writer feeding
+  :class:`TwoBufferWriter`.  With ``compute="device"`` every phase-2 worker
+  builds its own :class:`~repro_torch.kernels.batch.DeviceAggregator` (its
+  own CUDA context on ``device="cuda"``), and every pool starts with
+  ``spawn``; the kernel libraries are built once, in the parent, before
+  any pool starts, and each task's launch counts and funnel timings travel
+  back with its plane;
+* ``ranks`` hands the whole run to the §4.4 rank driver
+  (:mod:`repro_torch.core.reduction`), which runs the numpy path only.
+
+**Determinism contract:** every backend produces byte-identical PMS and CMS
+databases for the same inputs and config (``ranks`` differs in the PMS
+plane layout only).  Three mechanisms pin this down:
 (1) ``ContextTree.preorder`` orders children canonically so final context
 ids are a function of tree *content*, not insertion schedule; (2) plane
 appends pass through :class:`repro_torch.runtime.OrderedSink`, pinning
@@ -55,15 +71,19 @@ from repro_torch.core.pms import PMSWriter
 from repro_torch.core.sparse import MeasurementProfile, Trace
 from repro_torch.core.stats import StatsAccumulator
 from repro_torch.core.traces import TraceDBWriter
-from repro_torch.runtime import OrderedSink, get_executor
-from repro_torch.runtime.reduce import AsyncStreamingReducer, StreamingReducer
+from repro_torch.runtime import OrderedSink, executor_for, get_executor
+from repro_torch.runtime import shm as shm_mod
+from repro_torch.runtime.reduce import (AsyncStreamingReducer, StreamingReducer,
+                                        TreeWithMaps, merge_tree_with_maps,
+                                        tree_reduce)
 
 
 @dataclass
 class AggregationConfig:
     n_threads: int = 4                   # legacy knob; used when n_workers unset
-    executor: str = "threads"            # serial | threads
-    n_workers: int | None = None         # worker count
+    executor: str = "threads"            # serial | threads | processes |
+                                         # ranks (compute="cpu" only)
+    n_workers: int | None = None         # worker count / rank count per backend
     buffer_bytes: int = 1 << 20          # PMS double-buffer flush threshold
     sink_window: int | None = None       # ordered-sink out-of-order bound;
                                          # None = auto (2 x workers),
@@ -78,6 +98,11 @@ class AggregationConfig:
     pipeline: str = "fused"              # fused single-sort phase-2 kernel;
                                          # the reference's "legacy" chain is
                                          # not ported yet
+    plane_transport: str = "shm"         # processes backend: "shm" slab
+                                         # arena or "pickle" through the
+                                         # pool pipe; byte-identical outputs
+    shm_slab_bytes: int = 1 << 20        # slab size; bigger planes fall
+                                         # back to one-shot segments
     compute: str = "device"              # "device": the kernels on `device`;
                                          # "cpu": the numpy hot loops
     device: str = "cuda"                 # "cuda": the CUDA kernels (raises
@@ -125,15 +150,26 @@ class AnalysisResult:
 
 
 class _PhaseTimer:
-    """Accumulates io/compute seconds across threads (Fig. 6 breakdown)."""
+    """Accumulates io/compute seconds across threads (Fig. 6 breakdown),
+    and the kernel launches made in worker processes."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.acc: dict[str, float] = {}
+        self.worker_launches: dict[str, int] = {}
 
     def add(self, key: str, dt: float) -> None:
         with self._lock:
             self.acc[key] = self.acc.get(key, 0.0) + dt
+
+    def maximum(self, key: str, value: float) -> None:
+        with self._lock:
+            self.acc[key] = max(self.acc.get(key, value), value)
+
+    def add_launches(self, counts: dict[str, int]) -> None:
+        with self._lock:
+            for k, n in counts.items():
+                self.worker_launches[k] = self.worker_launches.get(k, 0) + n
 
 
 class TwoBufferWriter:
@@ -244,17 +280,25 @@ def _make_stats_reducer(cfg: AggregationConfig):
 
 
 class StreamingAggregator:
-    """Single-rank engine over an in-process executor."""
+    """Single-rank engine; :mod:`repro_torch.core.reduction` composes ranks."""
 
     def __init__(self, out_dir, config: AggregationConfig | None = None):
         self.out_dir = str(out_dir)
         os.makedirs(self.out_dir, exist_ok=True)
         self.cfg = config or AggregationConfig()
 
+    def _executor(self):
+        return executor_for(self.cfg.executor, self.cfg.workers,
+                            self.cfg.compute)
+
     # -- phase 1: contexts ---------------------------------------------------
     def parse_contexts(self, profile_paths: list[str], timer: _PhaseTimer,
                        unified: ContextTree | None = None, executor=None):
-        """Parallel parse + unify; returns (unified, remaps, routes, meta)."""
+        """Parallel parse + unify; returns (unified, remaps, routes, meta).
+
+        In-process only (the body closes over the shared tree); the
+        ``processes`` backend goes through :func:`_phase1_shard_worker`.
+        """
         ex = executor or get_executor(self.cfg.executor, self.cfg.workers)
         return phase1_unify_inprocess(profile_paths, timer, unified=unified,
                                       executor=ex)
@@ -264,26 +308,54 @@ class StreamingAggregator:
         if cfg.pipeline != "fused":
             raise ValueError(f"pipeline {cfg.pipeline!r} is not ported to "
                              f"repro_torch yet; only 'fused' is")
+        if cfg.plane_transport not in ("shm", "pickle"):
+            raise ValueError(f"unknown plane_transport "
+                             f"{cfg.plane_transport!r}; expected 'shm' "
+                             f"or 'pickle'")
         if cfg.compute not in ("cpu", "device"):
             raise ValueError(f"unknown compute {cfg.compute!r}; "
                              f"expected 'cpu' or 'device'")
         if cfg.stats_merge not in ("auto", "inline", "workers"):
             raise ValueError(f"unknown stats_merge {cfg.stats_merge!r}; "
                              f"expected 'auto', 'inline' or 'workers'")
+        if cfg.compute == "device" and cfg.executor == "ranks":
+            raise ValueError("compute='device' is not supported under the "
+                             "ranks driver; use serial/threads/processes")
         if cfg.compute == "device":
             from repro_torch.kernels.batch import resolve_device
-            resolve_device(cfg.device)  # a missing card raises here
+            if resolve_device(cfg.device).type == "cuda":  # no card raises
+                # once, here: worker processes only load the libraries
+                from repro_torch.kernels import _build
+                _build.build_all()
 
     # -- full run --------------------------------------------------------------
     def run(self, profile_paths: list[str]) -> AnalysisResult:
+        """Aggregate ``profile_paths``.  ``timings["device_launches"]``
+        counts each kernel's launches in the run, in this process and in
+        its worker processes; a ``processes`` run also reports the workers'
+        share as ``timings["device_launches_workers"]``."""
         self._validate()
         from repro_torch.kernels._build import launch_counts
         before = launch_counts.snapshot()
-        with get_executor(self.cfg.executor, self.cfg.workers) as ex:
-            res = self._run_inprocess(profile_paths, ex)
+        with self._executor() as ex:
+            if ex.driver == "ranks":
+                # whole-run driver backend (paper §4.4): n_workers ranks,
+                # n_threads threads per rank; imported lazily — the rank
+                # driver composes *this* engine, so the import must not be
+                # circular at module load
+                from repro_torch.core.reduction import aggregate_multiprocess
+                res = aggregate_multiprocess(
+                    profile_paths, self.out_dir, n_ranks=ex.n_workers,
+                    threads_per_rank=self.cfg.n_threads, config=self.cfg)
+            elif ex.in_process:
+                res = self._run_inprocess(profile_paths, ex)
+            else:
+                res = self._run_sharded(profile_paths, ex)
         after = launch_counts.snapshot()
+        workers = res.timings.get("device_launches_workers", {})
         res.timings["device_launches"] = {
-            k: after[k] - before.get(k, 0) for k in sorted(after)}
+            k: after.get(k, 0) - before.get(k, 0) + workers.get(k, 0)
+            for k in sorted({*after, *workers})}
         return res
 
     # -- in-process path (serial / threads) ------------------------------------
@@ -355,6 +427,101 @@ class StreamingAggregator:
                               registries, trace_path, timer, t_start, n,
                               n_ctx, int(nvals.sum()))
 
+    # -- sharded path (processes) ----------------------------------------------
+    def _run_sharded(self, profile_paths: list[str], ex) -> AnalysisResult:
+        cfg = self.cfg
+        timer = _PhaseTimer()
+        t_start = time.perf_counter()
+        n = len(profile_paths)
+        shards = ex.shards(n)
+
+        # ---- phase 1: per-shard local CCTs, merged by a reduction tree ----
+        t0 = time.perf_counter()
+        shard_paths = [[profile_paths[i] for i in sh] for sh in shards]
+        results1: dict[int, dict] = dict(
+            ex.map_unordered(_phase1_shard_worker, shard_paths))
+        items = [
+            TreeWithMaps(ContextTree.from_arrays(results1[k]["tree"]),
+                         {k: np.arange(len(results1[k]["tree"]["parent"]))})
+            for k in range(len(shards))
+        ]
+        if items:
+            merged, _ = tree_reduce(items, merge_tree_with_maps, 2)
+        else:
+            merged = TreeWithMaps(ContextTree(), {})
+        pos, order, end = merged.tree.preorder()
+        final_tree = _renumber(merged.tree, pos, order)
+        n_ctx = len(final_tree)
+
+        # broadcast final ids back: compose per-profile remaps and routes
+        # (fresh containers per index — never `[{}] * n` aliases)
+        remaps_final: list[np.ndarray | None] = [None] * n
+        routes_final: list[dict] = [{} for _ in range(n)]
+        identities: list[dict | None] = [None] * n
+        registries: list[list] = [[] for _ in range(n)]
+        trace_lens = np.zeros(n, dtype=np.int64)
+        for k, sh in enumerate(shards):
+            res = results1[k]
+            shard_map = pos[merged.maps[k]]  # local ctx -> final preorder id
+            for j, g in enumerate(sh):
+                remaps_final[g] = shard_map[np.asarray(res["remaps"][j], np.int64)]
+                routes_final[g] = {
+                    int(shard_map[ph]): (shard_map[np.asarray(t_, np.int64)], w)
+                    for ph, (t_, w) in res["routes"][j].items()
+                }
+                identities[g] = res["identities"][j]
+                registries[g] = res["registries"][j]
+                trace_lens[g] = res["trace_lens"][j]
+        timer.add("phase1", time.perf_counter() - t0)
+
+        # ---- phase 2: propagate/encode in workers, single writer here ----
+        t0 = time.perf_counter()
+        pms_path = os.path.join(self.out_dir, "db.pms")
+        pms = PMSWriter(pms_path, n)
+        writer = TwoBufferWriter(pms, cfg.buffer_bytes, timer)
+        trace_path = None
+        trace_writer = None
+        if cfg.write_traces and trace_lens.sum() > 0:
+            trace_path = os.path.join(self.out_dir, "db.trc")
+            trace_writer = TraceDBWriter(trace_path, [int(x) for x in trace_lens])
+        stats_reducer = _make_stats_reducer(cfg)
+        nvals = np.zeros(n, dtype=np.int64)
+        parent_pre = np.asarray(final_tree.parent, dtype=np.int64)
+
+        def consume(i: int, payload, p_ctx: int, p_vals: int, acc) -> None:
+            writer.append(i, payload, p_ctx, p_vals, identities[i])
+            stats_reducer.push(acc)
+            nvals[i] = p_vals
+
+        trace_sink = None
+        if trace_writer is not None:
+            def trace_sink(i: int, tr: Trace) -> None:
+                t2 = time.perf_counter()
+                trace_writer.write_trace(i, tr)
+                timer.add("io_write", time.perf_counter() - t2)
+
+        try:
+            phase2_stream_sharded(profile_paths, remaps_final, routes_final,
+                                  cfg, ex, parent_pre, end, timer, consume,
+                                  trace_sink)
+            writer.close()
+        except BaseException:
+            stats_reducer.close()
+            pms.abort()
+            if trace_writer is not None:
+                trace_writer.close()
+            raise
+        if trace_writer is not None:
+            trace_writer.close()
+        timer.add("phase2", time.perf_counter() - t0)
+
+        res = self._complete(pms, final_tree, stats_reducer.result(),
+                             registries, trace_path, timer, t_start, n,
+                             n_ctx, int(nvals.sum()))
+        res.timings["device_launches_workers"] = dict(
+            sorted(timer.worker_launches.items()))
+        return res
+
     # -- completion (paper: overlapped with CMS generation) --------------------
     def _complete(self, pms, final_tree, root_acc, registries,
                   trace_path, timer, t_start, n, n_ctx, n_values) -> AnalysisResult:
@@ -406,9 +573,15 @@ def phase1_unify_inprocess(profile_paths: list[str], timer: _PhaseTimer,
     unified tree: stable under later appends, renumbered to canonical
     preorder only when a database is written.
 
-    In-process only: the body closes over the shared tree.
+    In-process only (the body closes over the shared tree); the
+    ``processes`` backend goes through :func:`_phase1_shard_worker`.
     """
     ex = executor or get_executor("serial", 1)
+    if not ex.in_process:
+        raise ValueError(
+            f"phase1_unify_inprocess requires an in-process executor, got "
+            f"{ex.name!r}; use StreamingAggregator.run for the sharded "
+            f"path, or pass executor= explicitly")
     unified = unified if unified is not None else ContextTree()
     structures: dict[str, StructureInfo] = {}
     struct_lock = threading.Lock()
@@ -523,6 +696,333 @@ def phase2_stream_inprocess(profile_paths: list[str], remap_of, route_of,
         for k, ms in device.device_ms.items():
             timer.add(f"device_{k}", ms / 1e3)
     return sink
+
+
+def phase2_stream_sharded(profile_paths: list[str], remaps_final,
+                          routes_final, cfg: AggregationConfig, ex,
+                          parent_pre: np.ndarray, end_arr: np.ndarray,
+                          timer: _PhaseTimer, consume, trace_sink=None):
+    """Phase-2 streaming over a ``processes`` executor with pluggable
+    output hooks: propagate/encode runs in pool workers (shm slab arena or
+    pickle transport), then ``consume(i, payload, n_ctx, n_vals, acc)``
+    and ``trace_sink(i, trace)`` run in profile order on the consuming
+    thread.  ``payload`` and the trace arrays may be views into a shm slab
+    that is recycled when the hook returns — hooks must copy anything they
+    retain (the PMS writer copies into its buffer).
+
+    Submission credits bound in-flight profiles (worker-resident or
+    buffered out of order in the sink) to the sink window; with the shm
+    transport the window doubles as the slab count, so slab recycling *is*
+    the submission throttle and the single-producer feed below can never
+    block on its own bounded sink (the next-expected profile is always
+    already submitted).  An explicit ``sink_window=0`` ("unbounded") stays
+    unthrottled on the pickle transport, where no slab scarcity requires a
+    bound.
+
+    With ``cfg.compute == "device"`` each worker runs the kernels on its
+    own :class:`~repro_torch.kernels.batch.DeviceAggregator`; every result
+    carries its task's launch counts and funnel timings, which are added
+    to ``timer`` here (``timer.worker_launches``, ``funnel_*``,
+    ``device_*``, and the largest ``worker_peak_bytes`` a worker reported).
+    """
+    n = len(profile_paths)
+    window = cfg.effective_sink_window
+    n_slabs = window if window is not None else max(2 * cfg.workers, 2)
+    arena = None
+    transport = cfg.plane_transport
+    if transport == "shm" and n > 0:
+        try:
+            arena = shm_mod.SlabArena(n_slabs, cfg.shm_slab_bytes)
+        except Exception:
+            transport = "pickle"  # no usable /dev/shm: fall back
+    n_credits = (window if window is not None
+                 else n_slabs if arena is not None else None)
+
+    def _consume(i: int, item):
+        try:
+            payload, p_ctx, p_vals, stat_arrays, ttime, tctx, cleanup = (
+                _open_plane_result(item, arena))
+        except BaseException:
+            _discard_plane_result(item)
+            raise
+        try:
+            consume(i, payload, p_ctx, p_vals,
+                    StatsAccumulator.from_arrays(stat_arrays))
+            if trace_sink is not None and len(ttime):
+                trace_sink(i, Trace(ttime, tctx))
+        finally:
+            # on success *and* failure: release slab views, then
+            # recycle the slab / unlink the one-shot segment — a
+            # consume error must not strand its own descriptor (the
+            # sink popped it, so the abort sweep can't see it)
+            del payload, ttime, tctx
+            cleanup()
+
+    sink = OrderedSink(_consume, window=window)
+    initargs = (end_arr, parent_pre, cfg.keep_exclusive, cfg.write_traces,
+                cfg.pipeline, cfg.shm_slab_bytes, cfg.compute, cfg.device,
+                arena.prefix if arena is not None else shm_mod.segment_prefix())
+
+    def task_source():
+        # pulled lazily by map_throttled, one task per credit: with the
+        # shm transport a free slab is guaranteed at every pull
+        for i in range(n):
+            slab = arena.acquire() if arena is not None else None
+            yield (profile_paths[i], remaps_final[i], routes_final[i], slab)
+
+    credits = ((lambda: sink.consumed + n_credits)
+               if n_credits is not None else (lambda: float("inf")))
+    t0 = time.perf_counter()
+    try:
+        for i, result in ex.map_throttled(
+                _phase2_profile_worker, task_source(), credits=credits,
+                initializer=_phase2_init, initargs=initargs,
+                on_discard=lambda res: _discard_plane_result(res[1])):
+            if t0 is not None:  # pool start-up plus the first task
+                timer.add("phase2_first_result", time.perf_counter() - t0)
+                t0 = None
+            _add_tally(timer, result[-1])
+            sink.put(i, result)
+        sink.close()
+    except BaseException:
+        # unlink one-shot segments stranded in the sink's buffer (slabs
+        # themselves die with the arena below)
+        for item in sink.pending_items():
+            _discard_plane_result(item)
+        raise
+    finally:
+        if arena is not None:
+            arena.close()
+    timer.add("sink_peak", float(sink.max_pending))
+    return sink
+
+
+# ---------------------------------------------------------------------------
+# process-backend worker bodies (module-level: must pickle across processes)
+# ---------------------------------------------------------------------------
+
+def _phase1_shard_worker(shard_paths: list[str]) -> dict:
+    """Unify one shard's profiles into a worker-local CCT — no uniquing lock;
+    the shard trees meet in the parent's reduction tree (paper §4.4)."""
+    structures: dict[str, StructureInfo] = {}
+    tree = ContextTree()
+    remaps, routes, identities, trace_lens, registries = [], [], [], [], []
+    for path in shard_paths:
+        prof = MeasurementProfile.load(path)
+        own = _load_structures(prof, structures)
+        remap, rts = expand_profile_tree(tree, prof.tree, own)
+        remaps.append(remap)
+        routes.append(rts)
+        identities.append(prof.identity)
+        trace_lens.append(int(prof.trace.time.size))
+        registries.append(prof.environment.get("registry", []))
+    return {"tree": tree.to_arrays(), "remaps": remaps, "routes": routes,
+            "identities": identities, "trace_lens": trace_lens,
+            "registries": registries}
+
+
+_PHASE2_STATE: tuple | None = None
+_PHASE2_INIT_S: float | None = None  # the initializer's seconds, told once
+
+_STAT_FIELDS = ("keys", "sum", "cnt", "vmin", "vmax", "sumsq")
+
+
+def _phase2_init(end: np.ndarray, parent: np.ndarray, keep_exclusive: bool,
+                 write_traces: bool, pipeline: str, slab_bytes: int,
+                 compute: str, device: str, shm_prefix: str) -> None:
+    """Pool initializer: ship the (large) preorder-interval arrays once per
+    worker instead of once per profile task.  With ``compute="device"``
+    each worker builds its own :class:`DeviceAggregator` on ``device`` —
+    workers are single-threaded, so batches degenerate to size 1, but
+    batch-composition independence makes the arithmetic (and the bytes)
+    identical.  A worker on a host without a card raises here, and the
+    pool delivers that error to the parent at the first task.
+    ``shm_prefix`` names the one-shot segments the worker creates."""
+    global _PHASE2_STATE, _PHASE2_INIT_S
+    t0 = time.perf_counter()
+    aggregator = None
+    if compute == "device":
+        from repro_torch.kernels.batch import DeviceAggregator
+        aggregator = DeviceAggregator(np.asarray(end, dtype=np.int64),
+                                      device=device)
+    _PHASE2_STATE = (np.asarray(end, dtype=np.int64),
+                     np.asarray(parent, dtype=np.int64),
+                     bool(keep_exclusive), bool(write_traces), pipeline,
+                     int(slab_bytes), aggregator, shm_prefix)
+    _PHASE2_INIT_S = time.perf_counter() - t0
+
+
+def _device_tally(aggregator) -> dict | None:
+    """This worker's kernel launches by name, its funnel's counters and its
+    card's peak allocation so far (None without a device): a result
+    carries the difference its task made, since the counters live in the
+    worker's process.  :func:`_phase2_profile_worker` adds the task's
+    seconds and, on a worker's first task, its initializer's seconds."""
+    if aggregator is None:
+        return None
+    from repro_torch.kernels._build import launch_counts
+    out = {"launches": launch_counts.snapshot(),
+           "funnel_launches": aggregator.launches,
+           "funnel_requests": aggregator.requests,
+           **{f"device_{k}": ms / 1e3
+              for k, ms in aggregator.device_ms.items()}}
+    if aggregator.device.type == "cuda":
+        import torch
+        out["worker_peak_bytes"] = torch.cuda.max_memory_allocated(
+            aggregator.device)
+    return out
+
+
+def _tally_delta(after: dict | None, before: dict | None) -> dict | None:
+    if after is None:
+        return None
+    out = {k: v - before[k] for k, v in after.items()
+           if k not in ("launches", "worker_peak_bytes")}
+    out["launches"] = {k: v - before["launches"].get(k, 0)
+                       for k, v in after["launches"].items()
+                       if v != before["launches"].get(k, 0)}
+    if "worker_peak_bytes" in after:
+        out["worker_peak_bytes"] = after["worker_peak_bytes"]
+    return out
+
+
+def _add_tally(timer: _PhaseTimer, tally: dict | None) -> None:
+    """Fold one phase-2 result's device tally into the run's timings:
+    launches by kernel, the largest ``worker_peak_bytes``, and sums of the
+    rest (``worker_task_s`` and ``worker_init_s`` over all workers,
+    ``workers_used`` counts the workers that ran a task)."""
+    if tally is None:
+        return
+    timer.add_launches(tally["launches"])
+    for k, v in tally.items():
+        if k == "worker_peak_bytes":
+            timer.maximum(k, float(v))
+        elif k != "launches":
+            timer.add(k, float(v))
+
+
+def _plane_section_lengths(nb_payload: int, n_trace: int,
+                           n_stats: int) -> list[int]:
+    """Byte lengths of a slab's sections: encoded plane, trace time (f64),
+    trace ctx (u32), then the six statistics arrays (u64 keys + 5 x f64)."""
+    return [nb_payload, 8 * n_trace, 4 * n_trace,
+            8 * n_stats, 8 * n_stats, 8 * n_stats,
+            8 * n_stats, 8 * n_stats, 8 * n_stats]
+
+
+def _phase2_profile_worker(task) -> tuple:
+    """Remap + redistribute + propagate + encode one profile; ship the
+    encoded plane (and per-profile trace/statistics payload) back to the
+    writer — through the assigned shared-memory slab when one is given
+    (``("shm", ...)`` descriptor), else pickled inline (``("raw", ...)``).
+    The last element of either is the task's device tally
+    (:func:`_device_tally`), or None on the numpy path.
+    """
+    global _PHASE2_INIT_S
+    path, remap_final, routes_final, slab_name = task
+    # Chaos hook: the worker-death liveness tests SIGKILL a worker
+    # mid-batch via the environment, which — unlike a monkeypatched worker
+    # body — reaches spawn-context children (the pool context for
+    # compute="device").
+    _marker = os.environ.get("REPRO_CHAOS_KILL_MARKER")
+    if _marker and _marker in str(path):
+        import signal
+        os.kill(os.getpid(), signal.SIGKILL)
+    assert _PHASE2_STATE is not None, "phase-2 worker used without initializer"
+    (end, parent, keep_exclusive, write_traces, pipeline,
+     slab_bytes, aggregator, shm_prefix) = _PHASE2_STATE
+    t0 = time.perf_counter()
+    before = _device_tally(aggregator)
+    prof = MeasurementProfile.load(path)
+    sm, acc, tr = transform_profile(prof, remap_final, routes_final, parent,
+                                    end, pipeline=pipeline,
+                                    keep_exclusive=keep_exclusive,
+                                    want_trace=write_traces,
+                                    device=aggregator)
+    tally = _tally_delta(_device_tally(aggregator), before)
+    if tally is not None:  # seconds to load and transform the profile
+        tally["worker_task_s"] = time.perf_counter() - t0
+        if _PHASE2_INIT_S is not None:  # this worker's first task
+            tally["worker_init_s"] = _PHASE2_INIT_S
+            tally["workers_used"] = 1
+            _PHASE2_INIT_S = None
+    if tr is not None:
+        ttime, tctx = tr.time, tr.ctx
+    else:
+        ttime, tctx = np.empty(0, np.float64), np.empty(0, np.uint32)
+
+    if slab_name is None:
+        return ("raw", sm.encode(), sm.n_contexts, sm.n_values,
+                acc.to_arrays(), ttime, tctx, tally)
+
+    stats = acc.to_arrays()
+    nb_payload = sm.encoded_nbytes()
+    n_stats = int(stats["keys"].size)
+    offs, total = shm_mod.sections_layout(
+        _plane_section_lengths(nb_payload, int(ttime.size), n_stats))
+    own = None
+    if total <= slab_bytes:
+        seg = shm_mod.worker_slab(slab_name)
+    else:
+        seg = shm_mod.create_segment(total, shm_prefix)  # oversize: one-shot
+        own = seg.name
+    buf = seg.buf
+    sm.encode_into(buf, offs[0])
+    shm_mod.write_section(buf, offs[1], ttime)
+    shm_mod.write_section(buf, offs[2], tctx)
+    for off, field_name in zip(offs[3:], _STAT_FIELDS):
+        shm_mod.write_section(buf, off, stats[field_name])
+    if own is not None:
+        del buf
+        seg.close()  # parent attaches by name and unlinks after consuming
+    return ("shm", slab_name, own, nb_payload, int(ttime.size), n_stats,
+            sm.n_contexts, sm.n_values, tally)
+
+
+def _open_plane_result(item: tuple, arena):
+    """Resolve a phase-2 result descriptor into (payload, n_ctx, n_vals,
+    stat_arrays, ttime, tctx, cleanup).
+
+    ``raw`` items are self-contained.  ``shm`` items resolve to zero-copy
+    views over the slab (or one-shot segment); statistics arrays are copied
+    out because the stats reducer holds them past slab recycling, while the
+    payload/trace views are consumed (written to disk) before ``cleanup()``
+    recycles the slab.
+    """
+    if item[0] == "raw":
+        _, payload, p_ctx, p_vals, stat_arrays, ttime, tctx, _ = item
+        return payload, p_ctx, p_vals, stat_arrays, ttime, tctx, lambda: None
+    _, slab_name, own, nb_payload, n_trace, n_stats, p_ctx, p_vals, _ = item
+    offs, _ = shm_mod.sections_layout(
+        _plane_section_lengths(nb_payload, n_trace, n_stats))
+    seg = shm_mod.attach(own) if own is not None else None
+    buf = seg.buf if seg is not None else arena.view(slab_name)
+    payload = buf[offs[0]:offs[0] + nb_payload]
+    ttime = shm_mod.read_section(buf, offs[1], np.float64, n_trace)
+    tctx = shm_mod.read_section(buf, offs[2], np.uint32, n_trace)
+    stat_arrays = {
+        f: shm_mod.read_section(buf, off, np.uint64 if f == "keys"
+                                else np.float64, n_stats, copy=True)
+        for off, f in zip(offs[3:], _STAT_FIELDS)
+    }
+
+    def cleanup():
+        if seg is not None:
+            shm_mod.destroy_segment(seg)
+        arena.release(slab_name)
+
+    return payload, p_ctx, p_vals, stat_arrays, ttime, tctx, cleanup
+
+
+def _discard_plane_result(item) -> None:
+    """Abort-path disposal of an unconsumed descriptor: unlink its one-shot
+    segment if it has one (arena slabs are unlinked wholesale)."""
+    if isinstance(item, tuple) and len(item) > 2 and item[0] == "shm" \
+            and item[2] is not None:
+        try:
+            shm_mod.destroy_segment(shm_mod.attach(item[2]))
+        except Exception:
+            pass
 
 
 # ---------------------------------------------------------------------------

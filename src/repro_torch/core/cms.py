@@ -20,8 +20,10 @@ With ``compute="device"`` the size census and the offset scan run on the
 port's ``histogram`` and ``blockscan`` kernels (on the CUDA card, or their
 plain versions with ``device="cpu"``); both are exact integer operations,
 so the file bytes never depend on the backend.  The workers that gather
-planes run in-process (``serial``/``threads``); the reference's
-out-of-process CMS workers are not ported yet.
+planes run in-process (``serial``/``threads``: GLB dynamic assignment) or
+in worker processes (``processes``/``ranks``: static contiguous shards of
+context groups); the census and the offsets always run in the caller's
+process, so gather workers launch no kernel.
 """
 from __future__ import annotations
 
@@ -241,17 +243,68 @@ def _gather_group_heap(pms: PMSReader, lo: int, hi: int) -> dict[int, bytes]:
 # builder
 # ---------------------------------------------------------------------------
 
+def _cms_shard_worker(task) -> int:
+    """Out-of-process CMS gather: one worker, one contiguous run of groups.
+
+    Offsets are *not* shipped with the task — the parent has already
+    written the header + offset table to the output file, so the worker
+    re-reads them from there (the §4.3.2 property: once sizes are known,
+    workers coordinate through precomputed offsets alone).  Returns the
+    number of planes written (progress/debug only).
+    """
+    pms_path, out_path, strategy, groups = task
+    pms = PMSReader(pms_path)
+    f = open(str(out_path), "r+b")
+    fd = f.fileno()
+    head = os.pread(fd, _HEADER, 0)
+    assert head[:4] == CMS_MAGIC, "CMS header not yet written"
+    (n_ctx,) = struct.unpack_from("<Q", head, 8)
+    raw = os.pread(fd, 8 * (int(n_ctx) + 1), _HEADER)
+    offsets = np.frombuffer(raw, dtype=np.uint64)
+    gather = (_gather_group_vectorized if strategy == "vectorized"
+              else _gather_group_heap)
+    written = 0
+    for lo, hi in groups:
+        planes = gather(pms, lo, hi)
+        if not planes:
+            continue
+        buf = b"".join(planes[c] for c in sorted(planes))
+        os.pwrite(fd, buf, int(offsets[min(planes)]))
+        written += len(planes)
+    f.close()
+    pms.close()
+    return written
+
+
+def _shard_groups(groups, sizes: np.ndarray, n_workers: int):
+    """Contiguous size-balanced split of groups across workers (static LB:
+    dynamic assignment cannot cross address spaces without a server)."""
+    gsz = np.array([int(np.sum(sizes[lo:hi])) for lo, hi in groups],
+                   dtype=np.int64)
+    csum = np.cumsum(gsz)
+    total = int(csum[-1]) if gsz.size else 0
+    shards: list[list[tuple[int, int]]] = [[] for _ in range(n_workers)]
+    for g, grp in enumerate(groups):
+        w = (min(int((csum[g] - 1) * n_workers // max(total, 1)),
+                 n_workers - 1) if total else 0)
+        shards[w].append(grp)
+    return [s for s in shards if s]
+
+
 def build_cms(pms_path, out_path, *, n_workers: int = 4, strategy: str = "vectorized",
               balance: str = "dynamic", group_target_bytes: int = 1 << 20,
               executor: str | None = None, compute: str = "device",
               device="cuda") -> int:
     """Generate the CMS file from a completed PMS file (paper §4.3.2).
 
-    ``executor`` selects the in-process worker substrate (default
-    ``threads``): gather workers run through its ``parallel_for`` (GLB
-    dynamic assignment; ``serial`` drains every group inline).  Output bytes
-    land at offsets fixed by the exclusive scan, so every substrate
-    produces a byte-identical file.
+    ``executor`` selects the worker substrate (default ``threads``):
+    in-process backends run the gather workers through their own
+    ``parallel_for`` (GLB dynamic assignment; ``serial`` drains every group
+    inline), out-of-process backends (``processes``, ``ranks``) shard
+    context groups statically across a worker pool, which starts with
+    ``spawn`` when ``compute="device"`` (the census may have put CUDA in
+    this process).  Output bytes land at offsets fixed by the exclusive
+    scan, so every substrate produces a byte-identical file.
 
     ``compute="device"`` runs the census histogram and the §4.3.2 offset
     scan through the port's kernels on ``device``; both are exact integer
@@ -275,8 +328,8 @@ def build_cms(pms_path, out_path, *, n_workers: int = 4, strategy: str = "vector
     groups = loadbalance.make_groups(sizes, group_target_bytes)
     gather = _gather_group_vectorized if strategy == "vectorized" else _gather_group_heap
 
-    from repro_torch.runtime import get_executor
-    ex = get_executor(executor or "threads", n_workers)
+    from repro_torch.runtime import executor_for
+    ex = executor_for(executor or "threads", n_workers, compute)
 
     f = open(str(out_path), "w+b")
     fd = f.fileno()
@@ -285,26 +338,33 @@ def build_cms(pms_path, out_path, *, n_workers: int = 4, strategy: str = "vector
     f.write(offsets.tobytes())
     f.flush()  # workers use positional pwrites from here on
 
-    assigner = loadbalance.make_assigner(balance, groups, sizes, n_workers)
+    if not ex.in_process:
+        tasks = [(str(pms_path), str(out_path), strategy, shard)
+                 for shard in _shard_groups(groups, sizes, n_workers)]
+        with ex:
+            for _ in ex.map_unordered(_cms_shard_worker, tasks):
+                pass
+    else:
+        assigner = loadbalance.make_assigner(balance, groups, sizes, n_workers)
 
-    def worker(w: int):
-        # every worker opens its own reader: no shared file positions
-        wpms = PMSReader(pms_path)
-        while True:
-            g = assigner.next_group(w)
-            if g is None:
-                break
-            lo, hi = g
-            planes = gather(wpms, lo, hi)
-            if not planes:
-                continue
-            # group planes are contiguous: one buffer, one pwrite
-            buf = b"".join(planes[c] for c in sorted(planes))
-            os.pwrite(fd, buf, int(offsets[min(planes)]))
-        wpms.close()
+        def worker(w: int):
+            # every worker opens its own reader: no shared file positions
+            wpms = PMSReader(pms_path)
+            while True:
+                g = assigner.next_group(w)
+                if g is None:
+                    break
+                lo, hi = g
+                planes = gather(wpms, lo, hi)
+                if not planes:
+                    continue
+                # group planes are contiguous: one buffer, one pwrite
+                buf = b"".join(planes[c] for c in sorted(planes))
+                os.pwrite(fd, buf, int(offsets[min(planes)]))
+            wpms.close()
 
-    with ex:
-        ex.parallel_for(n_workers, worker)
+        with ex:
+            ex.parallel_for(n_workers, worker)
 
     meta_off = int(offsets[-1])
     blob = binio.pack_json({"n_profiles": pms.n_profiles,

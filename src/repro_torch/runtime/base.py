@@ -8,8 +8,7 @@ pluggable choice:
 * ``serial``    — inline loop, no concurrency (debugging / baselines);
 * ``threads``   — the original shared-counter thread pool (§4.2.4 analog);
 * ``processes`` — multiprocessing workers over profile shards, the
-  single-node stand-in for the paper's MPI ranks (not ported yet, nor is
-  the whole-run ``ranks`` driver: asking for either raises).
+  single-node stand-in for the paper's MPI ranks.
 
 An :class:`Executor` exposes two primitives:
 
@@ -25,13 +24,11 @@ with :func:`get_executor` and treat it uniformly.
 """
 from __future__ import annotations
 
+import os
 from abc import ABC, abstractmethod
 from typing import Callable, Iterable, Iterator
 
 _REGISTRY: dict[str, type["Executor"]] = {}
-
-# backends of the reference that this package does not carry yet
-NOT_PORTED = ("processes", "ranks")
 
 
 def register_executor(cls: type["Executor"]) -> type["Executor"]:
@@ -52,10 +49,6 @@ def get_executor(name: str, n_workers: int = 1, **kwargs) -> "Executor":
     surface with the list of valid choices.  ``kwargs`` pass through to the
     backend constructor (e.g. ``mp_context`` for ``processes``).
     """
-    if name in NOT_PORTED:
-        raise ValueError(
-            f"executor {name!r} is not ported to repro_torch yet; "
-            f"available: {', '.join(available_executors())}")
     try:
         cls = _REGISTRY[name]
     except KeyError:
@@ -63,6 +56,21 @@ def get_executor(name: str, n_workers: int = 1, **kwargs) -> "Executor":
             f"unknown executor {name!r}; available: {', '.join(available_executors())}"
         ) from None
     return cls(n_workers, **kwargs)
+
+
+def executor_for(name: str, n_workers: int, compute: str) -> "Executor":
+    """:func:`get_executor` for an engine run on ``compute``, with the spawn
+    rule: when ``compute == "device"`` an out-of-process backend starts its
+    workers with ``spawn``, since a forked child cannot use CUDA once its
+    parent has (and forking a parent whose torch thread pools have run is
+    the hazard :mod:`repro_torch.runtime.processes` names).  An explicit
+    ``REPRO_MP_CONTEXT`` still wins."""
+    kwargs = {}
+    cls = _REGISTRY.get(name)
+    if (compute == "device" and cls is not None and not cls.in_process
+            and not os.environ.get("REPRO_MP_CONTEXT")):
+        kwargs["mp_context"] = "spawn"
+    return get_executor(name, n_workers, **kwargs)
 
 
 class Executor(ABC):

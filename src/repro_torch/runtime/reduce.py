@@ -1,14 +1,21 @@
-"""Reduction-tree machinery for the aggregation engine.
+"""Reduction-tree machinery shared by thread, process, and rank engines.
 
 The paper composes parallelism with two-phase reduction trees (§4.4):
 phase 1 merges per-worker CCTs, phase 2 merges per-worker statistic
-accumulators.  The in-process engine folds per-profile statistics through
-the streaming reducers here; the generic tree reducer is kept for the
-sharded executors, which are not ported yet.
+accumulators.  This module holds the generic tree reducer, the streaming
+statistics reducers, and the CCT-with-remaps merge payload, so
+``repro_torch.core.aggregate`` (executor backends) and
+``repro_torch.core.reduction`` (the multi-rank driver) share one
+implementation instead of each holding a global uniquing lock.
 """
 from __future__ import annotations
 
 from concurrent.futures import Future, ThreadPoolExecutor
+from dataclasses import dataclass
+
+import numpy as np
+
+from repro_torch.core.cct import ContextTree
 
 
 def tree_reduce(items: list, merge, branching: int):
@@ -142,3 +149,19 @@ class AsyncStreamingReducer:
         if not self._closed:
             self._closed = True
             self._pool.shutdown(wait=False)
+
+
+@dataclass
+class TreeWithMaps:
+    """A CCT plus, per contributing shard/rank, the remap of its local ids."""
+
+    tree: ContextTree
+    maps: dict[int, np.ndarray]
+
+
+def merge_tree_with_maps(a: TreeWithMaps, b: TreeWithMaps) -> TreeWithMaps:
+    """Phase-1 merge payload: unify ``b`` into ``a``, composing id remaps."""
+    remap = a.tree.merge(b.tree)
+    for key, m in b.maps.items():
+        a.maps[key] = remap[m]
+    return a

@@ -115,12 +115,13 @@ def test_float_workload_within_tolerance_of_reference(tmp_path, workloads):
 @pytest.mark.parametrize("name", ["float", "int"])
 def test_port_bit_deterministic_across_executors_and_workers(tmp_path,
                                                              workloads, name):
-    """serial and threads at 1, 2 and 4 workers: one set of database bytes,
-    f32-class data included."""
+    """serial, threads at 1, 2 and 4 workers and processes at 2 and 4: one
+    set of database bytes, f32-class data included."""
     digests = {_digests(_port(tmp_path, workloads[name], f"{ex}{w}",
                               executor=ex, n_workers=w))
                for ex, w in [("serial", 1), ("threads", 1), ("threads", 2),
-                             ("threads", 4)]}
+                             ("threads", 4), ("processes", 2),
+                             ("processes", 4)]}
     assert len(digests) == 1
 
 
@@ -159,8 +160,9 @@ def test_config_defaults_and_missing_card(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"executor": "processes"}, "not ported"),
-    ({"executor": "ranks"}, "not ported"),
+    ({"executor": "ranks", "compute": "device"},
+     "not supported under the ranks driver"),
+    ({"executor": "gpu-rdma"}, "unknown executor"),
     ({"pipeline": "legacy"}, "not ported"),
     ({"compute": "quantum"}, "compute"),
     ({"stats_merge": "eventually"}, "stats_merge"),
@@ -206,6 +208,7 @@ def test_import_loads_neither_jax_nor_repro():
             "import repro_torch.launch.analyze, repro_torch.launch.train\n"
             "import repro_torch.data.synth, repro_torch.kernels.batch\n"
             "import repro_torch.train.compression\n"
+            "import repro_torch.core.reduction, repro_torch.runtime\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
             "             or m.startswith(('jax.', 'repro.')))\n"
             "print(json.dumps(bad))\n")

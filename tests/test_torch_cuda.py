@@ -556,6 +556,61 @@ def test_analyze_on_card_bit_deterministic_across_executors(dev, tmp_path):
     assert len(digests) == 1
 
 
+@pytest.fixture(scope="module")
+def card_twins(tmp_path_factory):
+    """The SMOKE twins at 3,000 contexts a profile: every plane holds more
+    than ``DEVICE_COMBINE_MIN`` keys, so ``segstats`` combines each one."""
+    import dataclasses
+    from repro_torch.data import synth
+    w = dataclasses.replace(synth.SMOKE, n_ctx=3000)
+    d = tmp_path_factory.mktemp("twins")
+    return {"float": synth.generate(w, str(d / "float"), seed=1)[0],
+            "int": synth.generate(w, str(d / "int"), seed=2,
+                                  integer_values=True)[0]}
+
+
+def _card_run(tmp_path, paths, name, **kw):
+    from repro_torch.core.aggregate import (AggregationConfig,
+                                            StreamingAggregator)
+    res = StreamingAggregator(tmp_path / name,
+                              AggregationConfig(**kw)).run(paths)
+    return res, [_digest(p) for p in (res.pms_path, res.cms_path,
+                                      res.trace_path)]
+
+
+def test_processes_on_card_exact_bytes_equal_numpy(dev, card_twins,
+                                                   tmp_path):
+    """processes on the card, integer twin: the numpy path's bytes; the
+    combine and the propagation launched in the spawned workers, the
+    census and the offsets in the parent."""
+    paths = card_twins["int"]
+    card, card_digests = _card_run(tmp_path, paths, "card",
+                                   executor="processes", n_workers=2)
+    _, cpu_digests = _card_run(tmp_path, paths, "cpu", executor="threads",
+                               compute="cpu")
+    assert card_digests == cpu_digests
+    total = card.timings["device_launches"]
+    workers = card.timings["device_launches_workers"]
+    assert workers["segstats"] == len(paths)
+    assert workers["blockscan_f32"] == len(paths)
+    for k in ("histogram", "blockscan_i64"):
+        assert total[k] - workers.get(k, 0) > 0
+    assert card.timings["device_kernel"] > 0.0
+    assert card.timings["worker_peak_bytes"] > 0
+
+
+def test_processes_on_card_float_bits_equal_threads(dev, card_twins,
+                                                    tmp_path):
+    """processes at 2 and 4 workers on the card, float twin: the bytes of
+    threads on the card."""
+    paths = card_twins["float"]
+    digests = {tuple(_card_run(tmp_path, paths, f"{ex}{w}", executor=ex,
+                               n_workers=w)[1])
+               for ex, w in [("threads", 4), ("processes", 2),
+                             ("processes", 4)]}
+    assert len(digests) == 1
+
+
 def _assert_bits_equal(got, want):
     """Bit equality, except that a NaN's payload is not compared: the FMA
     on the card and the f64 residual of the plain version give NaNs of
