@@ -29,6 +29,27 @@ read just after:
    path kernel, the workers' share ``segstats`` and ``blockscan_f32``, the
    parent's counters the rest.  The ``ranks`` driver runs no kernel (it
    refuses ``--compute device``), so only the CPU tests drive it.
+   ``legacy_parity`` — both workloads through ``pipeline="legacy"`` (the
+   three-pass numpy chain, ``compute="cpu"``): ``db.pms``, ``db.cms`` and
+   ``db.trc`` byte-identical to the fused numpy run of the same workload.
+   ``query`` — ``repro_torch.launch.analyze query`` ``topk``, ``select``,
+   ``stripe``, ``window`` (with and without ``--pid``) and ``diff``, each
+   a subprocess with ``CUDA_VISIBLE_DEVICES=""``, on the databases the card
+   wrote and on the numpy ones: the integer twin's stdout byte-identical,
+   the float twin's rows the same contexts and paths with values within
+   ``atol=1e-3, rtol=1e-4``; each op also timed in this process, cold and
+   warm.  ``diagnose`` — ``analyze diagnose`` on each database with the
+   float workload's numpy database as ``--baseline``, as JSON and as
+   ``--markdown``: no regression of the card's float database against the
+   numpy run of its own workload, the float findings within tolerance; the
+   integer workload's regressions against it, JSON (its ``db`` field
+   aside) and table byte-identical between card and numpy.
+   ``dense_baseline`` — ``DenseAnalysis`` over the integer workload's first
+   2 profiles: 200 sampled exclusive and inclusive cells equal the card's
+   sparse database through ``repro_torch.query.Database.value``; and the
+   paper's ratio, the whole workload's dense tensor (by
+   ``dense_measurement_nbytes``, not written: ~7.2 GB) against the card
+   run's PMS and CMS bytes.
 4. ``determinism`` — one inclusive column scanned alone and inside the
    main path's batch gives bitwise-equal results; 10 launches of
    ``blockscan`` on each of the main path's scan inputs, of ``segstats`` on
@@ -625,6 +646,258 @@ def analyze_processes_phase(analyze, fpaths, ipaths, work: Path,
     return out
 
 
+# -- the read side: legacy chain, query, diagnose, dense baseline ------------
+
+def legacy_parity_phase(fpaths, ipaths, work: Path, fused: dict) -> dict:
+    """Both workloads through the legacy three-pass chain (numpy only):
+    ``db.pms``, ``db.cms`` and ``db.trc`` byte-equal to the fused numpy run
+    of the same workload (``fused``: name -> (summary, wall seconds))."""
+    from repro_torch.core.aggregate import (AggregationConfig,
+                                            StreamingAggregator)
+    out = {}
+    for name, paths in (("float", fpaths), ("int", ipaths)):
+        t0 = time.perf_counter()
+        res = StreamingAggregator(work / f"legacy_{name}", AggregationConfig(
+            pipeline="legacy", compute="cpu")).run(paths)
+        wall = time.perf_counter() - t0
+        ref, ref_wall = fused[name]
+        same = {k: sha(p) == sha(ref[k]) for k, p in (
+            ("pms", res.pms_path), ("cms", res.cms_path),
+            ("traces", res.trace_path))}
+        out[name] = {"legacy_wall_s": wall, "fused_numpy_wall_s": ref_wall,
+                     "legacy_phase2_s": res.timings.get("phase2"),
+                     "fused_numpy_phase2_s": ref["timings"].get("phase2"),
+                     "bytes_equal": same}
+        require(all(same.values()),
+                f"legacy {name} databases differ from fused: {same}")
+    return out
+
+
+def run_query_cli(argv: list[str]) -> tuple[str, float]:
+    """``python -m repro_torch.launch.analyze`` in a subprocess with no card
+    visible: its stdout and wall milliseconds."""
+    import os
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.analyze",
+                           *argv], capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=300)
+    ms = (time.perf_counter() - t0) * 1e3
+    require(proc.returncode == 0,
+            f"analyze {' '.join(argv[:3])} failed: {proc.stderr[-2000:]}")
+    return proc.stdout, ms
+
+
+def _rows_by(rows: list) -> dict | None:
+    """Rows keyed by their context (or call path) where that key is unique
+    in every row, else None."""
+    for key in ("ctx", "path"):
+        if all(isinstance(r, dict) and key in r for r in rows):
+            keyed = {r[key]: r for r in rows}
+            if len(keyed) == len(rows):
+                return keyed
+    return None
+
+
+def _close(a, b) -> bool:
+    """Two query documents agree: equal keys, rows matched by context (or
+    call path) so that values within the tolerance may order them either
+    way, integers and strings equal, floats within ATOL/RTOL."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_close(a[k], b[k]) for k in a)
+    if isinstance(a, list) and isinstance(b, list):
+        ka, kb = _rows_by(a), _rows_by(b)
+        if a and ka is not None and kb is not None:
+            return ka.keys() == kb.keys() and all(_close(ka[k], kb[k])
+                                                  for k in ka)
+        return len(a) == len(b) and all(_close(x, y) for x, y in zip(a, b))
+    if isinstance(a, float) or isinstance(b, float):
+        return isinstance(a, (int, float)) and isinstance(b, (int, float)) \
+            and math.isclose(a, b, rel_tol=RTOL, abs_tol=ATOL)
+    return a == b
+
+
+def query_phase(analyze, dbs: dict) -> dict:
+    """The port's ``analyze query`` ops on the databases the card wrote and
+    on the numpy ones (``dbs``: ``{float,int}_{card,numpy}`` -> directory),
+    each op in a subprocess with ``CUDA_VISIBLE_DEVICES=""``.  The integer
+    twin's stdout must be byte-equal between card and numpy; the float
+    twin's rows the same contexts and paths with values within ATOL/RTOL.
+    Each op is also timed in this process: the first call (cold: the
+    database's first open here) and the second (warm); ``open_ms`` is
+    the time to open and close each database alone, twice."""
+    from repro_torch.query import Database
+    out = {"open_ms": {}}
+    for name, db in dbs.items():  # opening alone: first, then again
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            Database(db).close()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["open_ms"][name] = times
+    metric = "9"  # a device metric: the odd profiles carry it
+    hot = {}  # each workload's hottest exclusive context, from numpy's
+    for twin in ("float", "int"):
+        top, _ = run_query_cli(["query", dbs[f"{twin}_numpy"], "topk",
+                                "--metric", metric, "-k", "1", "--exclusive"])
+        hot[twin] = str(json.loads(top)["rows"][0]["ctx"])
+    ops = {
+        "topk": ["topk", "--metric", metric, "-k", "10"],
+        "select": ["select", "--metric", metric, "--path-regex", "solve"],
+        "stripe": ["stripe", "--ctx", "0", "--metric", metric,
+                   "--inclusive"],
+        "stripe_hot": ["stripe", "--ctx", "{hot}", "--metric", metric],
+        "window": ["window", "--t0", "10", "--t1", "20"],
+        "window_pid": ["window", "--pid", "1", "--t0", "10", "--t1", "20"],
+        "diff": ["diff", "{other}", "--metric", metric, "--top", "20"],
+    }
+    # diff: the float twin against the integer twin of the same backend,
+    # the integer twin against the one float numpy database
+    other = {"float_card": dbs["int_card"], "float_numpy": dbs["int_numpy"],
+             "int_card": dbs["float_numpy"], "int_numpy": dbs["float_numpy"]}
+    for op, args in ops.items():
+        docs, row = {}, {}
+        for name, db in dbs.items():
+            fill = {"{other}": other[name], "{hot}": hot[name.split("_")[0]]}
+            argv = ["query", db, *[fill.get(a, a) for a in args]]
+            docs[name], row[f"{name}_subprocess_ms"] = run_query_cli(argv)
+            times = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    analyze.main(argv)
+                times.append((time.perf_counter() - t0) * 1e3)
+            row[f"{name}_cold_ms"], row[f"{name}_warm_ms"] = times
+        fdoc = json.loads(docs["float_card"])
+        row["rows"] = len(fdoc.get("rows", fdoc.get("occupancy",
+                                                    fdoc.get("values", []))))
+        row["int_bytes_equal"] = docs["int_card"] == docs["int_numpy"]
+        row["float_close"] = _close(fdoc, json.loads(docs["float_numpy"]))
+        row["stdout_bytes"] = len(docs["float_card"])
+        out[op] = row
+        require(row["int_bytes_equal"],
+                f"query {op}: card and numpy integer databases print "
+                f"different bytes")
+        require(row["float_close"],
+                f"query {op}: card float database disagrees with numpy's")
+        require(row["rows"] > 0, f"query {op} returned nothing")
+    return out
+
+
+DIAGNOSE_LIMIT = 25  # the most severe findings kept (the CLI's --limit)
+
+
+def diagnose_phase(dbs: dict) -> dict:
+    """``analyze diagnose`` on every database with the float workload's
+    numpy database as ``--baseline``, as JSON and as ``--markdown``.  The
+    float twin is the baseline's own workload, so the card's database must
+    show no regression and its other findings must agree with numpy's; the
+    integer twin is another workload, so the call paths both hold give
+    regressions, and the card's JSON (its ``db`` field aside) and table
+    must be byte-identical to numpy's.  Each run keeps its
+    ``DIAGNOSE_LIMIT`` most severe findings."""
+    base = dbs["float_numpy"]
+    out, docs = {"limit": DIAGNOSE_LIMIT}, {}
+    for name, db in dbs.items():
+        argv = ["diagnose", db, "--baseline", base, "--limit",
+                str(DIAGNOSE_LIMIT)]
+        js, ms = run_query_cli(argv)
+        md, md_ms = run_query_cli([*argv, "--markdown"])
+        doc = json.loads(js)
+        require(doc["db"] == db and doc["baseline"] == base,
+                f"diagnose {name}: wrong db/baseline fields")
+        doc["db"] = "<db>"
+        docs[name] = (doc, md)
+        kinds: dict[str, int] = {}
+        for f in doc["findings"]:
+            kinds[f["kind"]] = kinds.get(f["kind"], 0) + 1
+        out[name] = {"findings": doc["count"], "kinds": kinds,
+                     "json_ms": ms, "markdown_ms": md_ms,
+                     "markdown_lines": len(md.splitlines())}
+    fc, fn = docs["float_card"], docs["float_numpy"]
+    out["float_regressions"] = sum(f["kind"] == "regression"
+                                   for f in fc[0]["findings"])
+    out["float_close"] = (_close(fc[0]["findings"], fn[0]["findings"])
+                          and fc[1].splitlines()[:2] == fn[1].splitlines()[:2])
+    out["int_bytes_equal"] = (
+        json.dumps(docs["int_card"][0]) == json.dumps(docs["int_numpy"][0])
+        and docs["int_card"][1] == docs["int_numpy"][1])
+    require(out["float_regressions"] == 0,
+            "diagnose: the card's float database regressed against the "
+            "numpy run of the same workload")
+    require(out["float_close"],
+            "diagnose: card and numpy float findings disagree")
+    require(out["int_bytes_equal"],
+            "diagnose: card and numpy integer findings differ")
+    require(out["int_card"]["kinds"].get("regression", 0) > 0,
+            "diagnose: another workload against the baseline showed no "
+            "regression")
+    return out
+
+
+DENSE_PROFILES, DENSE_SAMPLES = 2, 200
+
+
+def dense_baseline_phase(ipaths, int_db: str, work: Path, sizes: dict,
+                         n_ctx: int, n_metrics: int) -> dict:
+    """The HPCToolkit-style dense analysis over the first profiles of the
+    integer workload: sampled exclusive and inclusive cells equal the
+    card's sparse database; and the paper's ratio, the whole workload's
+    dense tensor (``dense_measurement_nbytes`` arithmetic, not written)
+    against the card run's sparse PMS and CMS bytes."""
+    import numpy as np
+
+    from repro_torch.core.cct import ContextTree
+    from repro_torch.core.dense_baseline import (DenseAnalysis,
+                                                 dense_measurement_nbytes)
+    from repro_torch.core.metrics import INCLUSIVE_BIT
+    from repro_torch.query import Database
+
+    da = DenseAnalysis(work / "dense.npy")
+    t0 = time.perf_counter()
+    res = da.run(ipaths[:DENSE_PROFILES])
+    dense_s = time.perf_counter() - t0
+    tensor = np.load(work / "dense.npy", mmap_mode="r")
+    m_half = tensor.shape[2] // 2
+    rng = np.random.default_rng(SEED_INT)
+    pid, ctx, col = np.nonzero(tensor)
+    pick = rng.choice(pid.size, DENSE_SAMPLES, replace=False)
+    bad = 0
+    with Database(int_db) as db:
+        # the dense tree's ids onto the database's: merge into a copy
+        tree = ContextTree.from_arrays(db.tree.to_arrays())
+        remap = tree.merge(res["tree"])
+        require(len(tree) == db.n_contexts,
+                "the dense tree holds a context the database lacks")
+        for i in pick:
+            p, c, k = int(pid[i]), int(ctx[i]), int(col[i])
+            mid = (k - m_half) | INCLUSIVE_BIT if k >= m_half else k
+            got = db.value(p, int(remap[c]), mid)
+            bad += got != float(tensor[p, c, k])
+        n_incl = int(np.sum(col[pick] >= m_half))
+    standard_dense = dense_measurement_nbytes(n_ctx, 2 * n_metrics) * len(
+        ipaths)
+    sparse = sizes["pms"] + sizes["cms"]
+    out = {"profiles": DENSE_PROFILES, "contexts": res["n_ctx"],
+           "metrics_out": res["n_metrics_out"],
+           "tensor_bytes": res["result_bytes"], "run_s": dense_s,
+           "samples": DENSE_SAMPLES, "inclusive_samples": n_incl,
+           "mismatches": bad,
+           "standard": {"profiles": len(ipaths), "contexts": n_ctx,
+                        "metrics": n_metrics,
+                        "dense_bytes": standard_dense,
+                        "sparse_pms_bytes": sizes["pms"],
+                        "sparse_cms_bytes": sizes["cms"],
+                        "dense_over_pms": standard_dense / sizes["pms"],
+                        "dense_over_pms_cms": standard_dense / sparse}}
+    require(bad == 0, f"dense and sparse values differ on {bad} of "
+            f"{DENSE_SAMPLES} samples")
+    require(0 < n_incl < DENSE_SAMPLES,
+            "the samples must hold exclusive and inclusive cells")
+    return out
+
+
 def repeated_launches(fn, times: int = 10) -> bool:
     """``fn`` run ``times`` times gives the same bits each time."""
     import torch
@@ -868,8 +1141,8 @@ def main() -> int:
     work = Path(tempfile.mkdtemp(prefix="smoke.", dir=ROOT / "build"))
     try:
         t0 = time.perf_counter()
-        fpaths, _, _ = synth.generate(synth.STANDARD, str(work / "float"),
-                                      seed=SEED_FLOAT)
+        fpaths, _, n_metrics = synth.generate(
+            synth.STANDARD, str(work / "float"), seed=SEED_FLOAT)
         ipaths, _, _ = synth.generate(synth.STANDARD, str(work / "int"),
                                       seed=SEED_INT, integer_values=True)
         gen_s = time.perf_counter() - t0
@@ -929,6 +1202,20 @@ def main() -> int:
         # -- the processes executor: kernels in spawned workers
         emit({"analyze_processes": analyze_processes_phase(
             analyze, fpaths, ipaths, work, dev_sum, dev_wall, counts, icpu)})
+
+        # -- the read side on the databases the card wrote: the legacy
+        #    chain, query, diagnose and the dense baseline (host only)
+        emit({"legacy_parity": legacy_parity_phase(
+            fpaths, ipaths, work, {"float": (cpu_sum, cpu_wall),
+                                   "int": (icpu, icpu_wall)})})
+        dbs = {name: str(Path(summ["pms"]).parent) for name, summ in (
+            ("float_card", dev_sum), ("float_numpy", cpu_sum),
+            ("int_card", idev), ("int_numpy", icpu))}
+        emit({"query": query_phase(analyze, dbs)})
+        emit({"diagnose": diagnose_phase(dbs)})
+        emit({"dense_baseline": dense_baseline_phase(
+            ipaths, dbs["int_card"], work, idev["sizes"], idev["contexts"],
+            n_metrics)})
 
         # -- 4. each kernel of the analyze path on its inputs, against its
         #    plain version (emitted with the int8_quant entry, after 9.)

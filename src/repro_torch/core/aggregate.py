@@ -95,9 +95,10 @@ class AggregationConfig:
     write_cms: bool = True
     write_traces: bool = True
     keep_exclusive: bool = True
-    pipeline: str = "fused"              # fused single-sort phase-2 kernel;
-                                         # the reference's "legacy" chain is
-                                         # not ported yet
+    pipeline: str = "fused"              # fused single-sort phase-2 kernel,
+                                         # or "legacy" (the three-pass
+                                         # numpy chain, compute="cpu" only);
+                                         # byte-identical outputs
     plane_transport: str = "shm"         # processes backend: "shm" slab
                                          # arena or "pickle" through the
                                          # pool pipe; byte-identical outputs
@@ -305,9 +306,9 @@ class StreamingAggregator:
 
     def _validate(self) -> None:
         cfg = self.cfg
-        if cfg.pipeline != "fused":
-            raise ValueError(f"pipeline {cfg.pipeline!r} is not ported to "
-                             f"repro_torch yet; only 'fused' is")
+        if cfg.pipeline not in ("fused", "legacy"):
+            raise ValueError(f"unknown pipeline {cfg.pipeline!r}; "
+                             f"expected 'fused' or 'legacy'")
         if cfg.plane_transport not in ("shm", "pickle"):
             raise ValueError(f"unknown plane_transport "
                              f"{cfg.plane_transport!r}; expected 'shm' "
@@ -318,6 +319,9 @@ class StreamingAggregator:
         if cfg.stats_merge not in ("auto", "inline", "workers"):
             raise ValueError(f"unknown stats_merge {cfg.stats_merge!r}; "
                              f"expected 'auto', 'inline' or 'workers'")
+        if cfg.compute == "device" and cfg.pipeline == "legacy":
+            raise ValueError("compute='device' requires pipeline='fused'; "
+                             "the legacy three-pass chain has no device path")
         if cfg.compute == "device" and cfg.executor == "ranks":
             raise ValueError("compute='device' is not supported under the "
                              "ranks driver; use serial/threads/processes")

@@ -37,17 +37,14 @@ Bit-identity argument (the executor parity contract rides on this):
 The dense fallback (high observed density) runs the cumsum formulation on
 the fused exclusive stream; both branches are bit-identical, so the cutoff
 is a pure performance knob that cannot perturb output bytes.
-
-This is the port of the reference's fused path.  The legacy three-pass
-chain it is held against in the reference is not ported yet, so
-``pipeline="legacy"`` raises here.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from repro_torch.core.metrics import INCLUSIVE_BIT
-from repro_torch.core.propagate import expand_routes
+from repro_torch.core.propagate import (expand_routes, propagate_inclusive,
+                                        redistribute_placeholders)
 from repro_torch.core.sparse import (CTX_DTYPE, IDX_DTYPE, MID_DTYPE, VAL_DTYPE,
                                      SparseMetrics)
 from repro_torch.core.stats import check_key_ranges
@@ -205,17 +202,25 @@ def transform_plane(
     keep_exclusive: bool = True,
     device=None,
 ) -> SparseMetrics:
-    """The one phase-2 transform dispatch, shared by every executor path.
+    """The one phase-2 transform dispatch, shared by every executor path
+    (in-process bodies, sharded workers, the ranks driver).
 
-    ``device`` (a :class:`repro_torch.kernels.batch.DeviceAggregator` or
-    None) selects the ``compute="device"`` backend.  Only the fused
-    pipeline is ported; ``pipeline="legacy"`` raises.
+    The cross-executor byte-parity contract requires all paths to run the
+    exact same transform for a given config — routing them through this
+    helper makes divergence structurally impossible.  ``device`` (a
+    :class:`repro_torch.kernels.batch.DeviceAggregator` or None) selects the
+    ``compute="device"`` backend; it requires the fused pipeline.
     """
-    if pipeline != "fused":
-        raise ValueError(f"pipeline {pipeline!r} is not ported to repro_torch "
-                         f"yet; only 'fused' is")
-    return fused_transform(metrics, remap, routes, parent, end,
-                           keep_exclusive=keep_exclusive, device=device)
+    if pipeline == "fused":
+        return fused_transform(metrics, remap, routes, parent, end,
+                               keep_exclusive=keep_exclusive, device=device)
+    if device is not None:
+        raise ValueError("device compute requires pipeline='fused'")
+    sm = metrics.remap_contexts(np.asarray(remap, dtype=np.int64))
+    if routes:
+        sm = redistribute_placeholders(sm, routes)
+    return propagate_inclusive(sm, np.arange(end.size), end,
+                               keep_exclusive=keep_exclusive)
 
 
 def fused_transform(

@@ -1,15 +1,119 @@
-"""Placeholder route expansion (paper §4.1.3).
+"""Metric propagation & placeholder redistribution (paper §4.1.2-4.1.3).
 
-Costs measured on a placeholder context "in superposition" are split across
-its reconstructed route leaves before inclusive propagation.  The fused
-phase-2 transform (:mod:`repro_torch.core.pipeline`) needs only the
-vectorized expansion core below; the reference's three-pass chain
-(``propagate_inclusive``/``redistribute_placeholders``) belongs to the
-legacy pipeline, which is not ported yet.
+The measurement subsystem records only *exclusive* costs.  Analysis derives
+*inclusive* costs by propagating exclusive values to every ancestor.
+
+Scan formulation: with the unified CCT linearized in DFS preorder, a
+node's subtree is the contiguous interval ``[i, end[i])``, so for a dense
+preorder value vector ``v``::
+
+    inclusive[i] = cumsum(v)[end[i]] - cumsum(v)[i]   (exclusive-prefix cumsum)
+
+One streaming pass instead of a recursive walk; batched over the (few)
+metrics a profile actually observed.  The ``blockscan`` kernel
+(``csrc/blockscan.cu``) runs the cumsum on the card for the fused pipeline
+(:mod:`repro_torch.core.pipeline`); this module is the numpy engine of the
+legacy three-pass chain, which is the fused pipeline's byte oracle.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from repro_torch.core.metrics import INCLUSIVE_BIT
+from repro_torch.core.sparse import SparseMetrics
+
+
+def propagate_inclusive(
+    metrics: SparseMetrics,
+    pos: np.ndarray,
+    end: np.ndarray,
+    *,
+    keep_exclusive: bool = True,
+) -> SparseMetrics:
+    """Exclusive -> exclusive+inclusive for one profile.
+
+    ``pos``/``end`` come from ``ContextTree.preorder()`` of the *unified*
+    tree; ``metrics`` must already be remapped onto unified context ids.
+    Inclusive values are emitted under ``mid | INCLUSIVE_BIT`` for every
+    context with a non-zero subtree sum.
+    """
+    n = pos.size
+    rows, mids, vals = metrics.triplets()
+    if rows.size == 0:
+        return metrics
+    prof_mids = np.unique(mids)
+    m = prof_mids.size
+    col_of = np.zeros(int(prof_mids.max()) + 1, dtype=np.int64)
+    col_of[prof_mids] = np.arange(m)
+
+    dense = np.zeros((n, m), dtype=np.float64)
+    dense[pos[rows], col_of[mids]] = vals
+    # exclusive-prefix cumsum: ps[i] = sum(dense[:i])
+    ps = np.zeros((n + 1, m), dtype=np.float64)
+    np.cumsum(dense, axis=0, out=ps[1:])
+    order_idx = np.arange(n)
+    incl = ps[end] - ps[order_idx]  # (n, m) inclusive values per preorder slot
+
+    ir, ic = np.nonzero(incl)
+    # map preorder slot back to context id: pos is a permutation; invert it
+    inv = np.empty(n, dtype=np.int64)
+    inv[pos] = np.arange(n)
+    out_rows = [inv[ir]]
+    out_mids = [prof_mids[ic] | INCLUSIVE_BIT]
+    out_vals = [incl[ir, ic]]
+    if keep_exclusive:
+        out_rows.append(rows)
+        out_mids.append(mids)
+        out_vals.append(vals)
+    return SparseMetrics.from_triplets(
+        np.concatenate(out_rows), np.concatenate(out_mids), np.concatenate(out_vals)
+    )
+
+
+def propagate_inclusive_reference(
+    metrics: SparseMetrics, parent: np.ndarray, *, keep_exclusive: bool = True
+) -> SparseMetrics:
+    """Naive per-node walk (the paper's recursive formulation) — test oracle."""
+    rows, mids, vals = metrics.triplets()
+    out: dict[tuple[int, int], float] = {}
+    for r, m, v in zip(rows, mids, vals):
+        node = int(r)
+        while node != -1:
+            key = (node, int(m) | INCLUSIVE_BIT)
+            out[key] = out.get(key, 0.0) + float(v)
+            node = int(parent[node])
+        if keep_exclusive:
+            key = (int(r), int(m))
+            out[key] = out.get(key, 0.0) + float(v)
+    if not out:
+        return metrics
+    ks = np.array([k for k in out], dtype=np.int64)
+    vs = np.array([out[tuple(k)] for k in ks], dtype=np.float64)
+    return SparseMetrics.from_triplets(ks[:, 0], ks[:, 1], vs)
+
+
+def redistribute_placeholders(
+    metrics: SparseMetrics,
+    routes: dict[int, tuple[np.ndarray, np.ndarray]],
+) -> SparseMetrics:
+    """GPU-context-reconstruction redistribution (paper §4.1.3).
+
+    ``routes`` maps a placeholder context id ("in superposition") to
+    ``(leaf_ctx_ids, weights)``; the placeholder's costs are split across the
+    reconstructed leaf contexts proportionally to observed/approximated call
+    counts, before inclusive propagation so the split costs flow up their
+    full reconstructed call paths.
+    """
+    if not routes:
+        return metrics
+    rows, mids, vals = metrics.triplets()
+    is_ph = np.isin(rows, np.fromiter(routes.keys(), dtype=np.int64))
+    leaf_ctx, e_lens, norm_w = expand_routes(rows[is_ph], routes)
+    return SparseMetrics.from_triplets(
+        np.concatenate([rows[~is_ph], leaf_ctx]),
+        np.concatenate([mids[~is_ph], np.repeat(mids[is_ph], e_lens)]),
+        np.concatenate([vals[~is_ph], np.repeat(vals[is_ph], e_lens) * norm_w]),
+    )
 
 
 def expand_routes(

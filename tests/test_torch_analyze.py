@@ -163,7 +163,7 @@ def test_config_defaults_and_missing_card(monkeypatch, tmp_path):
     ({"executor": "ranks", "compute": "device"},
      "not supported under the ranks driver"),
     ({"executor": "gpu-rdma"}, "unknown executor"),
-    ({"pipeline": "legacy"}, "not ported"),
+    ({"pipeline": "legacy"}, "requires pipeline='fused'"),
     ({"compute": "quantum"}, "compute"),
     ({"stats_merge": "eventually"}, "stats_merge"),
 ])

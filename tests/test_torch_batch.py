@@ -290,12 +290,18 @@ def test_device_path_edge_cases():
         assert got.encode() == ref.encode()
 
 
-def test_legacy_pipeline_is_not_ported():
+def test_legacy_pipeline_runs_on_the_host_only():
+    """The legacy chain refuses a launch funnel, and without one gives the
+    fused transform's bytes."""
     from repro_torch.core.pipeline import transform_plane
     sm = SparseMetrics.from_triplets([0], [0], [1.0])
-    with pytest.raises(ValueError, match="not ported"):
-        transform_plane(sm, np.zeros(1, np.int64), {}, np.array([-1]),
-                        np.array([1]), pipeline="legacy")
+    args = (sm, np.zeros(1, np.int64), {}, np.array([-1]), np.array([1]))
+    dev = kb.DeviceAggregator(np.array([1]), device="cpu")
+    with pytest.raises(ValueError,
+                       match="device compute requires pipeline='fused'"):
+        transform_plane(*args, pipeline="legacy", device=dev)
+    assert transform_plane(*args, pipeline="legacy").encode() == \
+        fused_transform(*args).encode()
 
 
 def test_build_cms_device_matches_reference(tmp_path, rng):

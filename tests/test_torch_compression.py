@@ -118,3 +118,81 @@ def test_compressed_psum_pod_over_gloo(world):
         assert results[r].shape == shape and results[r].dtype == np.float32
         np.testing.assert_array_equal(results[r], results[0])
         assert float(np.abs(results[r] - exact).max()) <= amax / 127 + 1e-5
+
+
+PSUM_SEEDS = range(6)
+PSUM_SHAPE = (64, 33)  # a full 2048 block and a ragged one
+_JIT_PSUM = """
+import sys
+import jax
+import numpy as np
+from jax.sharding import Mesh
+from repro.train.compression import compressed_psum_pod
+world, out = int(sys.argv[1]), sys.argv[2]
+xs = np.load(sys.argv[3])
+mesh = Mesh(np.array(jax.devices()[:world]), ("pod",))
+f = jax.jit(lambda x: compressed_psum_pod(x, mesh))
+np.save(out, np.stack([np.asarray(f(x)) for x in xs]))
+"""
+
+
+def _psum_inputs():
+    out = []
+    for seed in PSUM_SEEDS:
+        rng = np.random.default_rng(seed)
+        out.append((rng.normal(size=PSUM_SHAPE)
+                    * 10.0 ** rng.uniform(-3, 2)).astype(np.float32))
+    return np.stack(out)
+
+
+def _psum_same_input_worker(rank, world, port, xs, out):
+    """Every rank holds the same inputs, as the reference's replicated
+    ``shard_map`` input gives every pod."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        out.put((rank, np.stack([
+            comp.compressed_psum_pod(torch.from_numpy(x)).numpy()
+            for x in xs])))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_compressed_psum_pod_bit_equal_to_jitted_reference(tmp_path, world):
+    """The port over ``world`` gloo ranks against
+    ``jax.jit(repro.train.compression.compressed_psum_pod)`` on a mesh of
+    ``world`` XLA host devices, in a subprocess so this process keeps its
+    single-device view: bit-equal results on every rank, for every seed."""
+    import os
+    import subprocess
+    import sys
+    xs = _psum_inputs()
+    np.save(tmp_path / "xs.npy", xs)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={world}")
+    ref = subprocess.run(
+        [sys.executable, "-c", _JIT_PSUM, str(world),
+         str(tmp_path / "ref.npy"), str(tmp_path / "xs.npy")],
+        capture_output=True, text=True, timeout=240, env=env, cwd=root)
+    assert ref.returncode == 0, ref.stderr[-3000:]
+    want = np.load(tmp_path / "ref.npy")
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_psum_same_input_worker,
+                         args=(r, world, port, xs, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = dict(out.get(timeout=120) for _ in range(world))
+    for p in procs:
+        p.join(timeout=60)
+        assert not p.is_alive() and p.exitcode == 0
+    assert want.shape == (len(PSUM_SEEDS),) + PSUM_SHAPE
+    for r in range(world):
+        np.testing.assert_array_equal(_bits(results[r]), _bits(want))

@@ -611,6 +611,41 @@ def test_processes_on_card_float_bits_equal_threads(dev, card_twins,
     assert len(digests) == 1
 
 
+def test_query_ops_on_card_database_equal_numpy(dev, card_twins, tmp_path):
+    """The integer twin written on the card and with numpy: every
+    ``analyze query`` op and ``diagnose`` print the same bytes on both."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import analyze
+    paths = card_twins["int"]
+    card, _ = _card_run(tmp_path, paths, "card", executor="threads")
+    cpu, _ = _card_run(tmp_path, paths, "cpu", executor="threads",
+                       compute="cpu")
+    dbs = [str(tmp_path / "card"), str(tmp_path / "cpu")]
+    ops = [["topk", "--metric", "9", "-k", "10"],
+           ["topk", "--metric", "2", "--exclusive"],
+           ["select", "--metric", "9", "--path-regex", "solve"],
+           ["stripe", "--ctx", "0", "--metric", "9", "--inclusive"],
+           ["diff", dbs[1], "--metric", "9"],
+           ["window", "--t0", "0", "--t1", "30"],
+           ["window", "--pid", "1", "--t0", "0", "--t1", "30"]]
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            analyze.main(argv)
+        return buf.getvalue()
+
+    for op in ops:
+        assert run(["query", dbs[0], *op]) == run(["query", dbs[1], *op]), op
+    for extra in ([], ["--markdown"]):
+        got, want = (run(["diagnose", d, "--metric", "9", *extra])
+                     for d in dbs)
+        assert got.replace(dbs[0], "<db>") == want.replace(dbs[1], "<db>")
+    assert card.timings["device_launches"]["histogram"] > 0
+
+
 def _assert_bits_equal(got, want):
     """Bit equality, except that a NaN's payload is not compared: the FMA
     on the card and the f64 residual of the plain version give NaNs of
