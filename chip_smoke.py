@@ -50,6 +50,28 @@ read just after:
    paper's ratio, the whole workload's dense tensor (by
    ``dense_measurement_nbytes``, not written: ~7.2 GB) against the card
    run's PMS and CMS bytes.
+   ``ingest`` — live ingest on the card, ``--publish-every 24``, 4 threads:
+   the float workload's 48 profiles uploaded one a call through
+   ``IngestClient`` to an in-process ``IngestHTTPServer`` (every launch
+   counter zeroed just before), then ``/v1/publish``: ``segstats``, both
+   ``blockscan`` bodies and the ``histogram`` must have launched, and the
+   48-profile epoch agree with phase 1's one-shot card database within
+   ``atol=1e-3, rtol=1e-4``, traces byte-identical; the integer workload
+   through ``python -m repro_torch.launch.serve ingest`` as a subprocess,
+   then SIGTERM: exit 0 with a drain line, and the last epoch's ``db.pms``,
+   ``db.cms`` and ``db.trc`` byte-identical to ``exact_parity``'s numpy and
+   card databases.  Per-append and per-publish seconds and the state's
+   timings are printed.  ``query_server`` — ``serve query-server ROOT
+   --follow`` on the integer ingest root with ``CUDA_VISIBLE_DEVICES=""``,
+   single-process and with ``--shards 2``: ``profile``, ``stripe`` (the
+   root, the hottest context), ``value``, ``topk``, ``threshold``,
+   ``window`` and ``findings``, each reply body byte-identical to the
+   in-process ``QueryServer.serve_one`` on the numpy database; seconds to
+   the ready line, and the first call and the median and p95 of 20 warm
+   calls per op.  ``watch`` — ``serve watch`` (no card), started before
+   the integer ingest publishes, against the numpy database: one report per
+   epoch it saw, the last the 48-profile epoch with no regression; the
+   seconds from each epoch's publish to its report.
 4. ``determinism`` — one inclusive column scanned alone and inside the
    main path's batch gives bitwise-equal results; 10 launches of
    ``blockscan`` on each of the main path's scan inputs, of ``segstats`` on
@@ -898,6 +920,349 @@ def dense_baseline_phase(ipaths, int_db: str, work: Path, sizes: dict,
     return out
 
 
+# -- live ingest, the resident query server and the regression watch ---------
+
+INGEST_PUBLISH_EVERY, INGEST_WORKERS = 24, 4
+WARM_CALLS = 20  # timed calls of each op after its first
+SMOKE_TRACE_ID = "chip-smoke-0001"
+# the analyzers' thresholds lowered so that the findings op finds something
+# on the synthetic workload, where the defaults find nothing: its traces
+# are 500 uniform samples over 60 s, so each rank's largest gap is ~1% of
+# its span, and no one of 196,049 contexts holds 1% of a metric
+FINDINGS_THRESHOLDS = {"imbalance": 1.1, "straggler": 1.1,
+                       "gap_frac": 0.005}
+INGEST_KERNELS = ("segstats", "blockscan_f32", "blockscan_i64", "histogram")
+
+
+class ServeProcess:
+    """``python -m repro_torch.launch.serve ARGV`` in a subprocess, the card
+    visible or not.  Threads collect its stdout lines (JSON, each with its
+    arrival time on the wall clock and its seconds since the start, and
+    ``on_line``'s result) and its stderr; :meth:`stop` sends SIGTERM and
+    kills it if it outlives the grace."""
+
+    def __init__(self, argv: list[str], *, card: bool, on_line=None):
+        import os
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        if not card:
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT)
+        self.lines: list[dict] = []
+        self.err: list[str] = []
+        self._cond = threading.Condition()
+        self._on_line = on_line
+        self._readers = [threading.Thread(target=self._read_out, daemon=True),
+                         threading.Thread(target=self._read_err, daemon=True)]
+        for t in self._readers:
+            t.start()
+
+    def _read_out(self):
+        for ln in self.proc.stdout:
+            entry = {"at": time.time(), "s": time.perf_counter() - self.t0,
+                     "doc": json.loads(ln)}
+            if self._on_line is not None:
+                entry["hook"] = self._on_line(entry["doc"])
+            with self._cond:
+                self.lines.append(entry)
+                self._cond.notify_all()
+        with self._cond:
+            self._cond.notify_all()
+
+    def _read_err(self):
+        for ln in self.proc.stderr:
+            self.err.append(ln)
+
+    def wait_line(self, pred, timeout_s: float) -> dict:
+        """The first stdout line whose document satisfies ``pred``."""
+        deadline = time.monotonic() + timeout_s
+        with self._cond:
+            while True:
+                for entry in self.lines:
+                    if pred(entry["doc"]):
+                        return entry
+                left = deadline - time.monotonic()
+                require(left > 0 and self.proc.poll() is None,
+                        f"serve {self.proc.args[3]}: no expected line "
+                        f"(exit {self.proc.poll()}): "
+                        f"{''.join(self.err)[-2000:]}")
+                self._cond.wait(min(left, 1.0))
+
+    def stop(self, grace_s: float = 120.0) -> tuple[int, str]:
+        """SIGTERM, then the exit code and stderr (killed past the grace)."""
+        import signal
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=grace_s)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        for t in self._readers:
+            t.join(timeout=10)
+        return rc, "".join(self.err)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _recorded(obj, name: str, into: list) -> None:
+    """Wrap ``obj.name`` so each call's return value is kept in ``into``
+    with its wall seconds."""
+    fn = getattr(obj, name)
+
+    def call(*args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        into.append({"wall_s": time.perf_counter() - t0, **res})
+        return res
+    setattr(obj, name, call)
+
+
+def _db_shas(db_dir) -> dict:
+    return {k: sha(Path(db_dir) / f"db.{k}") for k in ("pms", "cms", "trc")}
+
+
+def _upload_all(client_cls, url_or_addr, paths) -> tuple[dict, float, float]:
+    """Every profile in order, one upload a call, then ``/v1/publish``:
+    the publish reply, the upload seconds and the publish seconds."""
+    host, port = url_or_addr
+    with client_cls(host, int(port), timeout_s=900) as c:
+        t0 = time.perf_counter()
+        for p in paths:
+            c.upload(Path(p).read_bytes())
+        t1 = time.perf_counter()
+        pub = c.publish()
+        return pub, t1 - t0, time.perf_counter() - t1
+
+
+def ingest_float_twin(fpaths, work: Path, dev_sum: dict) -> dict:
+    """The float workload through an in-process ingest server on the card,
+    every launch counter zeroed just before the uploads: the epoch of all
+    48 profiles against the one-shot card database."""
+    from repro_torch.core.aggregate import AggregationConfig
+    from repro_torch.core.pms import PMSReader
+    from repro_torch.ingest import IngestClient, IngestHTTPServer
+    from repro_torch.kernels import _build
+    srv = IngestHTTPServer(
+        str(work / "ingest_float"), publish_every=INGEST_PUBLISH_EVERY,
+        config=AggregationConfig(executor="threads",
+                                 n_workers=INGEST_WORKERS, compute="device",
+                                 device="cuda"))
+    appends, publishes = [], []
+    _recorded(srv.state, "append", appends)
+    _recorded(srv.state, "write_database", publishes)
+    _build.launch_counts.reset()
+    t0 = time.perf_counter()
+    with srv:
+        pub, upload_s, publish_s = _upload_all(IngestClient, srv.address,
+                                               fpaths)
+        metrics = srv.metrics()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts.snapshot()
+    epoch_dir = Path(srv.root) / pub["dir"]
+    with PMSReader(epoch_dir / "db.pms") as a, \
+            PMSReader(dev_sum["pms"]) as b:
+        agree = plane_agreement(a, b)
+    one = _db_shas(Path(dev_sum["pms"]).parent)
+    got = _db_shas(epoch_dir)
+    timings = dict(srv.state.timings)
+    out = {"wall_s": wall, "upload_s": upload_s, "final_publish_s": publish_s,
+           "epoch": pub["epoch"], "profiles": pub["stats"]["n_profiles"],
+           "contexts": pub["stats"]["n_contexts"],
+           "appends": appends, "publishes": publishes,
+           "merges": metrics["merges"],
+           "epochs_published": metrics["epochs_published"],
+           "launches": counts, "timings": timings, **agree,
+           "traces_equal": got["trc"] == one["trc"],
+           "bytes_equal_to_oneshot": {k: got[k] == one[k] for k in got}}
+    require(out["profiles"] == len(fpaths),
+            f"ingest float: the last epoch holds {out['profiles']} profiles")
+    for k in INGEST_KERNELS:
+        require(counts.get(k, 0) > 0, f"ingest never launched {k}")
+    require(timings["device_launches"] == counts,
+            f"ingest device_launches {timings['device_launches']} disagree "
+            f"with the counters {counts}")
+    require(agree["ok"], f"ingest float epoch disagrees with the one-shot "
+            f"card database: {agree}")
+    require(out["traces_equal"], "ingest float traces differ")
+    return out
+
+
+def ingest_int_twin(ipaths, work: Path, dbs: dict) -> tuple[dict, dict]:
+    """The integer workload through the ingest CLI with the card visible,
+    while the ``watch`` CLI (no card) follows the same root against the
+    numpy database of the same profiles: the ingest and watch lines."""
+    from repro_torch.ingest import IngestClient
+    from repro_torch.ingest.snapshot import MANIFEST_NAME, epoch_dirname
+    root = work / "ingest_int"
+
+    def published_at(doc):  # the epoch's manifest time, on report arrival
+        m = root / epoch_dirname(doc["epoch"]) / MANIFEST_NAME
+        return m.stat().st_mtime if m.exists() else None
+
+    with ServeProcess(["watch", f"int={root}", "--baseline",
+                       dbs["int_numpy"], "--poll-ms", "100", "--wait-s",
+                       "900"], card=False, on_line=published_at) as watch, \
+            ServeProcess(["ingest", str(root), "--port", "0",
+                          "--publish-every", str(INGEST_PUBLISH_EVERY)],
+                         card=True) as ing:
+        ready = ing.wait_line(lambda d: "url" in d, 300)
+        addr = ready["doc"]["url"].removeprefix("http://").split(":")
+        pub, upload_s, publish_s = _upload_all(IngestClient, addr, ipaths)
+        rc, err = ing.stop()
+        last = watch.wait_line(lambda d: d.get("epoch") == pub["epoch"], 300)
+        wrc, werr = watch.stop()
+    drains = [json.loads(ln)["drain"] for ln in err.splitlines()
+              if ln.startswith('{"drain"')]
+    epoch_dir = root / pub["dir"]
+    got = _db_shas(epoch_dir)
+    numpy, card = _db_shas(dbs["int_numpy"]), _db_shas(dbs["int_card"])
+    ingest = {"ready_s": ready["s"], "upload_s": upload_s,
+              "final_publish_s": publish_s, "epoch": pub["epoch"],
+              "profiles": pub["stats"]["n_profiles"],
+              "final_publish_stats": pub["stats"], "exit": rc,
+              "drain": drains[0] if drains else None,
+              "equal_to_numpy": {k: got[k] == numpy[k] for k in got},
+              "equal_to_card": {k: got[k] == card[k] for k in got}}
+    require(rc == 0 and drains, f"ingest CLI exit {rc}, no drain line: "
+            f"{err[-2000:]}")
+    require(ingest["profiles"] == len(ipaths),
+            f"ingest int: the last epoch holds {ingest['profiles']} profiles")
+    require(all(ingest["equal_to_numpy"].values())
+            and all(ingest["equal_to_card"].values()),
+            f"ingest int epoch differs: {ingest}")
+    reports = [e for e in watch.lines if "epoch" in e["doc"]]
+    epochs = [e["doc"]["epoch"] for e in reports]
+    status = [json.loads(ln)["status"] for ln in werr.splitlines()
+              if ln.startswith('{"status"')]
+    final = last["doc"]
+    watch_out = {
+        "exit": wrc, "epochs": epochs,
+        "reports": [{"epoch": e["doc"]["epoch"], "eval_s": e["doc"]["eval_s"],
+                     "worst": e["doc"]["worst"],
+                     "findings": len(e["doc"]["findings"]),
+                     "detect_s": (e["at"] - e["hook"]
+                                  if e["hook"] is not None else None)}
+                    for e in reports],
+        "final_regressions": sum(f["kind"] == "regression"
+                                 for f in final["findings"]),
+        "final_kinds": sorted({f["kind"] for f in final["findings"]}),
+        "status": status[0] if status else None}
+    require(wrc == 0, f"watch exit {wrc}: {werr[-2000:]}")
+    require(epochs == sorted(set(epochs)) and epochs[-1] == pub["epoch"],
+            f"watch reported epochs {epochs}, the last published "
+            f"{pub['epoch']}")
+    require(watch_out["final_regressions"] == 0,
+            "watch: the final epoch regressed against the numpy database of "
+            "the same profiles")
+    return ingest, watch_out
+
+
+def _smoke_requests(db) -> list:
+    """The seven ops (the stripe twice: the root and the hottest context)
+    on metric 9, a device metric, aimed from ``db``."""
+    from repro_torch.query import topk_hot_paths
+    from repro_torch.serve.engine import QueryRequest
+    metric = 9
+    hot = topk_hot_paths(db, metric, k=1, inclusive=False)[0].ctx
+    tenth = topk_hot_paths(db, metric, k=10, inclusive=True)[-1].value
+    return [("profile", QueryRequest(op="profile", pid=1)),
+            ("stripe", QueryRequest(op="stripe", ctx=0, metric=metric,
+                                    inclusive=True)),
+            ("stripe_hot", QueryRequest(op="stripe", ctx=int(hot),
+                                        metric=metric)),
+            ("value", QueryRequest(op="value", pid=1, ctx=int(hot),
+                                   metric=metric)),
+            ("topk", QueryRequest(op="topk", metric=metric, k=10,
+                                  inclusive=True)),
+            ("threshold", QueryRequest(op="threshold", metric=metric,
+                                       inclusive=True,
+                                       params={"min_value": float(tenth)})),
+            ("window", QueryRequest(op="window", pid=1, t0=10.0, t1=20.0)),
+            ("findings", QueryRequest(op="findings", metric=metric, params={
+                "limit": DIAGNOSE_LIMIT,
+                "thresholds": FINDINGS_THRESHOLDS}))]
+
+
+def query_server_phase(root: Path, numpy_db: str) -> dict:
+    """``query-server ROOT --follow`` on the integer ingest root with no card
+    visible, single-process and with ``--shards 2``: each op's reply body
+    byte-equal to the in-process engine's on numpy's database of the same
+    profiles, and its first and warm call times."""
+    import http.client
+
+    from repro_torch.query import Database
+    from repro_torch.serve.engine import QueryServer
+    from repro_torch.serve.wire import request_to_wire, result_to_wire
+    with Database(numpy_db) as db:
+        reqs = _smoke_requests(db)
+        server = QueryServer(db)
+        results = {name: server.serve_one(r) for name, r in reqs}
+    expect = {name: json.dumps({"results": [result_to_wire(res)],
+                                "trace_id": SMOKE_TRACE_ID}).encode()
+              for name, res in results.items()}
+    out = {"warm_calls": WARM_CALLS, "findings": len(results["findings"]),
+           "findings_kinds": sorted({f.kind for f in results["findings"]})}
+    require(out["findings"] > 0, "the findings op found nothing")
+    for mode, extra in (("single", []), ("shards2", ["--shards", "2"])):
+        row = {}
+        with ServeProcess(["query-server", str(root), "--follow", "--port",
+                           "0", *extra], card=False) as qs:
+            ready = qs.wait_line(lambda d: "url" in d, 300)
+            row["ready_s"] = ready["s"]
+            row["epoch"] = ready["doc"].get("epoch")
+            row["warm"] = ready["doc"].get("warm")
+            host, port = ready["doc"]["url"].removeprefix(
+                "http://").split(":")
+            conn = http.client.HTTPConnection(host, int(port), timeout=300)
+            try:
+                for name, r in reqs:
+                    body = json.dumps(
+                        {"requests": [request_to_wire(r)]}).encode()
+                    times, replies = [], set()
+                    for _ in range(WARM_CALLS + 1):
+                        t0 = time.perf_counter()
+                        conn.request("POST", "/v1/query", body=body, headers={
+                            "Content-Type": "application/json",
+                            "X-Trace-Id": SMOKE_TRACE_ID})
+                        resp = conn.getresponse()
+                        raw = resp.read()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                        require(resp.status == 200,
+                                f"query-server {mode} {name}: {resp.status}")
+                        replies.add(raw)
+                    warm = sorted(times[1:])
+                    row[name] = {
+                        "first_ms": times[0],
+                        "warm_median_ms": statistics.median(warm),
+                        "warm_p95_ms": warm[math.ceil(0.95 * len(warm)) - 1],
+                        "reply_bytes": len(raw),
+                        "bytes_equal": replies == {expect[name]}}
+                    require(row[name]["bytes_equal"],
+                            f"query-server {mode} {name}: the reply differs "
+                            f"from the in-process engine's")
+            finally:
+                conn.close()
+            rc, err = qs.stop()
+        row["exit"] = rc
+        row["drained"] = any(ln.startswith('{"drain"') and
+                             json.loads(ln)["drain"]["drained"]
+                             for ln in err.splitlines())
+        require(rc == 0 and row["drained"],
+                f"query-server {mode}: exit {rc}: {err[-2000:]}")
+        out[mode] = row
+    return out
+
+
 def repeated_launches(fn, times: int = 10) -> bool:
     """``fn`` run ``times`` times gives the same bits each time."""
     import torch
@@ -1217,6 +1582,19 @@ def main() -> int:
             ipaths, dbs["int_card"], work, idev["sizes"], idev["contexts"],
             n_metrics)})
 
+        # -- live ingest on the card (the float twin in process, the integer
+        #    twin through the CLI), then the resident query server and the
+        #    regression watch on what it published (host only)
+        ingest_float = ingest_float_twin(fpaths, work, dev_sum)
+        ingest_int, watch = ingest_int_twin(ipaths, work, dbs)
+        emit({"ingest": {"workload": "STANDARD",
+                         "publish_every": INGEST_PUBLISH_EVERY,
+                         "workers": INGEST_WORKERS, "float": ingest_float,
+                         "int": ingest_int}})
+        emit({"query_server": query_server_phase(work / "ingest_int",
+                                                 dbs["int_numpy"])})
+        emit({"watch": watch})
+
         # -- 4. each kernel of the analyze path on its inputs, against its
         #    plain version (emitted with the int8_quant entry, after 9.)
         ids, vals, n_seg = rec.args("segstats")
@@ -1356,6 +1734,10 @@ def main() -> int:
             lambda: q8.int8_quant_cuda(x, q8.DEFAULT_BLOCK_N),
             lambda: q8.int8_quant_plain(x, q8.DEFAULT_BLOCK_N), None,
             9 * x.numel() + 4 * nb, 8 * x.numel(), True))
+        for e in entries:  # the launches of the ingest phase's float twin
+            key = next(k for k in (*INGEST_KERNELS, "scatter_add",
+                                   "int8_quant") if e["name"].startswith(k))
+            e["ingest_launches"] = ingest_float["launches"].get(key, 0)
         emit({"kernels": entries})
     finally:
         shutil.rmtree(work, ignore_errors=True)

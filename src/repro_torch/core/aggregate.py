@@ -280,6 +280,39 @@ def _make_stats_reducer(cfg: AggregationConfig):
     return StreamingReducer(_merge_stats)
 
 
+def validate_config(cfg: AggregationConfig) -> None:
+    """Refuse a config the engine cannot run, and build the kernel libraries
+    when it runs on the card: once, here, before any pool starts, so worker
+    processes only load them.  Every engine that takes an
+    :class:`AggregationConfig` (a one-shot run, the ingest tier's resident
+    state) calls this first."""
+    if cfg.pipeline not in ("fused", "legacy"):
+        raise ValueError(f"unknown pipeline {cfg.pipeline!r}; "
+                         f"expected 'fused' or 'legacy'")
+    if cfg.plane_transport not in ("shm", "pickle"):
+        raise ValueError(f"unknown plane_transport "
+                         f"{cfg.plane_transport!r}; expected 'shm' "
+                         f"or 'pickle'")
+    if cfg.compute not in ("cpu", "device"):
+        raise ValueError(f"unknown compute {cfg.compute!r}; "
+                         f"expected 'cpu' or 'device'")
+    if cfg.stats_merge not in ("auto", "inline", "workers"):
+        raise ValueError(f"unknown stats_merge {cfg.stats_merge!r}; "
+                         f"expected 'auto', 'inline' or 'workers'")
+    if cfg.compute == "device" and cfg.pipeline == "legacy":
+        raise ValueError("compute='device' requires pipeline='fused'; "
+                         "the legacy three-pass chain has no device path")
+    if cfg.compute == "device" and cfg.executor == "ranks":
+        raise ValueError("compute='device' is not supported under the "
+                         "ranks driver; use serial/threads/processes")
+    if cfg.compute == "device":
+        from repro_torch.kernels.batch import resolve_device
+        if resolve_device(cfg.device).type == "cuda":  # no card raises
+            # once, here: worker processes only load the libraries
+            from repro_torch.kernels import _build
+            _build.build_all()
+
+
 class StreamingAggregator:
     """Single-rank engine; :mod:`repro_torch.core.reduction` composes ranks."""
 
@@ -304,41 +337,13 @@ class StreamingAggregator:
         return phase1_unify_inprocess(profile_paths, timer, unified=unified,
                                       executor=ex)
 
-    def _validate(self) -> None:
-        cfg = self.cfg
-        if cfg.pipeline not in ("fused", "legacy"):
-            raise ValueError(f"unknown pipeline {cfg.pipeline!r}; "
-                             f"expected 'fused' or 'legacy'")
-        if cfg.plane_transport not in ("shm", "pickle"):
-            raise ValueError(f"unknown plane_transport "
-                             f"{cfg.plane_transport!r}; expected 'shm' "
-                             f"or 'pickle'")
-        if cfg.compute not in ("cpu", "device"):
-            raise ValueError(f"unknown compute {cfg.compute!r}; "
-                             f"expected 'cpu' or 'device'")
-        if cfg.stats_merge not in ("auto", "inline", "workers"):
-            raise ValueError(f"unknown stats_merge {cfg.stats_merge!r}; "
-                             f"expected 'auto', 'inline' or 'workers'")
-        if cfg.compute == "device" and cfg.pipeline == "legacy":
-            raise ValueError("compute='device' requires pipeline='fused'; "
-                             "the legacy three-pass chain has no device path")
-        if cfg.compute == "device" and cfg.executor == "ranks":
-            raise ValueError("compute='device' is not supported under the "
-                             "ranks driver; use serial/threads/processes")
-        if cfg.compute == "device":
-            from repro_torch.kernels.batch import resolve_device
-            if resolve_device(cfg.device).type == "cuda":  # no card raises
-                # once, here: worker processes only load the libraries
-                from repro_torch.kernels import _build
-                _build.build_all()
-
     # -- full run --------------------------------------------------------------
     def run(self, profile_paths: list[str]) -> AnalysisResult:
         """Aggregate ``profile_paths``.  ``timings["device_launches"]``
         counts each kernel's launches in the run, in this process and in
         its worker processes; a ``processes`` run also reports the workers'
         share as ``timings["device_launches_workers"]``."""
-        self._validate()
+        validate_config(self.cfg)
         from repro_torch.kernels._build import launch_counts
         before = launch_counts.snapshot()
         with self._executor() as ex:

@@ -209,6 +209,8 @@ def test_import_loads_neither_jax_nor_repro():
             "import repro_torch.data.synth, repro_torch.kernels.batch\n"
             "import repro_torch.train.compression\n"
             "import repro_torch.core.reduction, repro_torch.runtime\n"
+            "import repro_torch.launch.serve, repro_torch.ingest\n"
+            "import repro_torch.serve, repro_torch.obs.export\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
             "             or m.startswith(('jax.', 'repro.')))\n"
             "print(json.dumps(bad))\n")

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version,
 the wrapper's argument checks, column determinism and repeated launches,
-analyze end to end
-against the numpy path, and a full-width training step.  Every test needs a card and is marked ``cuda``;
+analyze and live ingest end to end against the numpy path, and a
+full-width training step.  Every test needs a card and is marked ``cuda``;
 without one they skip.  On a host with a card::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -644,6 +644,59 @@ def test_query_ops_on_card_database_equal_numpy(dev, card_twins, tmp_path):
                      for d in dbs)
         assert got.replace(dbs[0], "<db>") == want.replace(dbs[1], "<db>")
     assert card.timings["device_launches"]["histogram"] > 0
+
+
+def _ingest_on_card(tmp_path, paths, name, **kw):
+    """``paths`` appended to the port's resident ingest state on the card
+    in uneven increments, then published: the database's digests and the
+    state's timings."""
+    from repro_torch.core.aggregate import AggregationConfig
+    from repro_torch.ingest import IngestState
+    state = IngestState(AggregationConfig(**kw))
+    n = len(paths)
+    for lo, hi in ((0, n // 3), (n // 3, n // 3 + 1), (n // 3 + 1, n)):
+        state.append(paths[lo:hi])
+    out = tmp_path / name
+    state.write_database(out)
+    return [_digest(out / f) for f in ("db.pms", "db.cms", "db.trc")], \
+        state.timings
+
+
+@pytest.mark.parametrize("executor", ["threads", "processes"])
+def test_ingest_on_card_exact_bytes_equal_numpy(dev, card_twins, tmp_path,
+                                                executor):
+    """Live ingest on the card, integer twin: every append's combine and
+    propagation and the publish's census and offsets run on the kernels,
+    and the epoch is the numpy one-shot run's bytes."""
+    paths = card_twins["int"]
+    digests, timings = _ingest_on_card(tmp_path, paths, "ingest",
+                                       executor=executor, n_workers=2)
+    _, cpu_digests = _card_run(tmp_path, paths, "cpu", executor="threads",
+                               compute="cpu")
+    assert digests == cpu_digests
+    launches = timings["device_launches"]
+    for k in ("segstats", "blockscan_f32", "blockscan_i64", "histogram"):
+        assert launches.get(k, 0) > 0, (k, launches)
+    assert timings["funnel_launches"] > 0 and timings["device_kernel"] > 0
+
+
+def test_ingest_on_card_float_within_tolerance_of_oneshot(dev, card_twins,
+                                                          tmp_path):
+    """Float twin: the ingest epoch's planes agree with the one-shot run on
+    the card within the smoke test's tolerance, and its traces are equal."""
+    from repro_torch.core.pms import PMSReader
+    paths = card_twins["float"]
+    digests, _ = _ingest_on_card(tmp_path, paths, "ingest",
+                                 executor="threads", n_workers=4)
+    one, one_digests = _card_run(tmp_path, paths, "one", executor="threads")
+    assert digests[2] == one_digests[2]
+    with PMSReader(str(tmp_path / "ingest" / "db.pms")) as a, \
+            PMSReader(one.pms_path) as b:
+        for pid in range(len(paths)):
+            pa, pb = a.plane(pid), b.plane(pid)
+            np.testing.assert_array_equal(pa.ctx, pb.ctx)
+            np.testing.assert_array_equal(pa.mid, pb.mid)
+            np.testing.assert_allclose(pa.val, pb.val, atol=1e-3, rtol=1e-4)
 
 
 def _assert_bits_equal(got, want):
