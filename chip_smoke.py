@@ -117,6 +117,28 @@ read just after:
     nothing counted), each one kernel a call; the float ``scatter_add`` at
     the census shape, at 40 columns and on a skewed input (90% of 200,000
     rows in one segment).
+11. The other families at full width, each freeing the card before the
+    next.  ``train_moe`` — qwen3-moe-30b-a3b (128 experts top-8, capacity
+    factor 1.25) cut to 4 of 48 layers, registered in process and run
+    through ``repro_torch.launch.train`` (the sorted dispatch), 5 steps at
+    batch 8 x 128 with a profile and a checkpoint; one more step with the
+    rowwise dispatch through ``make_train_step``, then one more step of
+    each dispatch under ``torch.profiler``; then ``--resume`` takes one
+    more step: step times, tokens/s, model TFLOP/s (6 N_active D), peak
+    memory, losses, gradient norms, the share of routed copies over
+    capacity, and each traced step's device ms, launches and idle share.  ``train_moe_profile`` — the port's ``analyze`` on the
+    card over that run's ``worker0.rprf``: host and device metrics in the
+    database, the path kernels launched.  ``train_vlm`` (llama-3.2-vision
+    cut to 10 of 40 layers: two cross-attention groups, 1,600 seeded
+    vision embeddings a row) and ``train_audio`` (whisper-small whole,
+    1,500 seeded frames and 448 decoder tokens a row) — 3 steps each at
+    batch 8 through ``make_train_step``, and a fourth under
+    ``torch.profiler``.  ``family_parity`` — each family
+    cut to its least depth (MoE 2 layers, VLM one group of 5, audio 2 + 2),
+    one seed, batch 2: loss and gradient norm on the card against the CPU
+    within 1e-2 and 2e-2 relative (bf16), and the MoE's top-k agreement.
+    ``moe_determinism`` — one MoE step (2 layers, batch 8 x 128) twice on
+    the card with each dispatch: loss and every gradient bit-equal.
 
 Every line before the last is one JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero without
@@ -152,6 +174,16 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 8, 128
 PARITY_LAYERS, PARITY_BATCH = 2, 2
 PARITY_RTOL_LOSS, PARITY_RTOL_GNORM = 1e-2, 2e-2  # bf16, card vs CPU
 COMPRESSION_ROUNDS = 3
+# the other families at full width (depth cut as noted)
+MOE_ARCH, VLM_ARCH, AUDIO_ARCH = ("qwen3-moe-30b-a3b", "llama-3.2-vision-11b",
+                                  "whisper-small")
+MOE_LAYERS, VLM_LAYERS = 4, 10          # of 48 and 40
+MOE_CUT = f"{MOE_ARCH}-{MOE_LAYERS}l"   # registered in process
+FAMILY_STEPS = 3                        # VLM and audio
+AUDIO_FRAMES, AUDIO_TOKENS = 1500, 448  # whisper's 30 s window, its decoder
+FAMILY_PARITY = {"moe": (MOE_ARCH, {"n_layers": 2}),
+                 "vlm": (VLM_ARCH, {"n_layers": 5}),
+                 "audio": (AUDIO_ARCH, {"n_layers": 2, "encoder_layers": 2})}
 SKEW_ROWS, SKEW_SHARE = 200_000, 0.9  # the skewed scatter-add input
 
 
@@ -1365,13 +1397,380 @@ def train_parity_phase() -> dict:
     return out
 
 
-def train_profile_phase(analyze, rprf: Path, work: Path) -> dict:
-    """The port's analyze on the card over the train profile."""
+# ---------------------------------------------------------------------------
+# the MoE, VLM and audio families
+# ---------------------------------------------------------------------------
+
+class RoutingRecorder:
+    """Wraps the port's two MoE dispatches (``repro_torch.models.moe``) and
+    keeps, for each call on a real device, the dispatch, the batch shape,
+    the capacity factor and each token's top-k experts; ``restore`` undoes
+    the wrapping."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe = moe
+        self.calls: list[tuple] = []
+        self._orig = {n: getattr(moe, n)
+                      for n in ("moe_block", "moe_block_rowwise")}
+        for name, orig in self._orig.items():
+            setattr(moe, name, self._wrap(name, orig))
+
+    def _wrap(self, name, orig):
+        import torch
+
+        def recorded(x, router_w, *weights, top_k, capacity_factor, **kw):
+            out, probs = orig(x, router_w, *weights, top_k=top_k,
+                              capacity_factor=capacity_factor, **kw)
+            if not probs.is_meta:
+                B, S, _ = x.shape
+                self.calls.append((name, B, S, probs.shape[-1], top_k,
+                                   capacity_factor,
+                                   torch.topk(probs.detach(), top_k).indices))
+            return out, probs
+
+        return recorded
+
+    def restore(self) -> None:
+        for name, orig in self._orig.items():
+            setattr(self.moe, name, orig)
+
+    def dropped(self, dispatch: str) -> dict:
+        """Routed copies over capacity in the calls of one dispatch: a
+        sorted expert keeps ``sorted_capacity`` copies of the whole batch,
+        a rowwise one ``rowwise_capacity`` of each row."""
+        import torch
+        name = {"sorted": "moe_block", "rowwise": "moe_block_rowwise"}[dispatch]
+        drop = total = 0
+        for n, B, S, E, K, cf, eidx in self.calls:
+            if n != name:
+                continue
+            if n == "moe_block":
+                C = self.moe.sorted_capacity(B * S, K, cf, E)
+                counts = torch.bincount(eidx.reshape(-1), minlength=E)
+            else:
+                C = self.moe.rowwise_capacity(S, K, cf, E)
+                rows = eidx.reshape(B, S * K)
+                counts = torch.zeros((B, E), dtype=torch.int64,
+                                     device=rows.device).scatter_add_(
+                    1, rows, torch.ones_like(rows))
+            drop += int(torch.clamp_min(counts - C, 0).sum())
+            total += B * S * K
+        return {"calls": sum(c[0] == name for c in self.calls),
+                "copies": total, "dropped": drop,
+                "dropped_share": drop / total if total else None}
+
+
+def set_dispatch(model, dispatch: str) -> None:
+    """Switch a built MoE model's dispatch (its blocks read their config
+    at each call)."""
+    for m in model.modules():
+        if hasattr(m, "cfg"):
+            m.cfg = m.cfg.replace(moe_dispatch=dispatch)
+
+
+def _step_stats(cfg, shape_seq: int, batch: int, tokens_per_step: int,
+                history: list[dict]) -> dict:
+    """Step times, tokens/s, model TFLOP/s (6 N_active D) and the losses
+    of a family's steps (the first step is left out of the median)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.api import model_flops, n_active_params, n_params
+    steps = [h["step_time"] for h in history]
+    median = statistics.median(steps[1:])
+    flops = model_flops(cfg, ShapeConfig("smoke", shape_seq, batch, "train"))
+    out = {"params": n_params(cfg), "active_params": n_active_params(cfg),
+           "steps": len(history), "step_s": steps,
+           "median_step_s_after_first": median,
+           "tokens_per_s": tokens_per_step / median,
+           "model_tflop_per_step_6nd": flops / 1e12,
+           "model_tflop_per_s": flops / median / 1e12,
+           "losses": [h["loss"] for h in history],
+           "grad_norms": [h["grad_norm"] for h in history]}
+    require(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                for h in history), f"{cfg.name}: losses not finite: {out}")
+    return out
+
+
+def profiled_step(fn, median_step_s: float) -> dict:
+    """``fn()``, one train step, under ``torch.profiler``: its wall ms to a
+    synchronise, the card's kernel ms and launches, the idle share over
+    that step and over the unprofiled median step, and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
+    require(busy_ms > 0, "torch.profiler saw no device time")
+    top = sorted(kernels, key=_dev_us, reverse=True)[:8]
+    return {"step_ms_profiled": step_ms, "device_ms": busy_ms,
+            "kernel_launches": sum(e.count for e in kernels),
+            "idle_share": 1.0 - busy_ms / step_ms,
+            "idle_share_vs_median_step": 1.0 - busy_ms / (median_step_s * 1e3),
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "ms": _dev_us(e) / 1e3} for e in top]}
+
+
+def timed_steps(step_fn, opt, batches) -> list[dict]:
+    """``step_fn(opt, batch)`` on each batch, each timed to a synchronise:
+    ``[{"step", "loss", "grad_norm", "step_time"}]``."""
+    import torch
+    history = []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step_fn(opt, batch)
+        torch.cuda.synchronize()
+        history.append({"step": i, "loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "step_time": time.perf_counter() - t0})
+    return history
+
+
+def train_moe_phase(train, work: Path):
+    """qwen3-moe-30b-a3b at full width, cut to MOE_LAYERS layers, through
+    the CLI with profile and checkpoint (the sorted dispatch), then one
+    traced step of it, and two with the rowwise dispatch through
+    ``make_train_step``, the second traced."""
+    import torch
+    from repro_torch.configs.base import get_arch, load_all, register_arch
+    from repro_torch.kernels import _build
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import AdamWConfig
+    load_all()  # the published configs first: a filled registry loads none
+    cfg = register_arch(get_arch(MOE_ARCH).replace(name=MOE_CUT,
+                                                   n_layers=MOE_LAYERS))
+    prof, ckpt = work / "moe_prof", work / "moe_ckpt"
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.reset()
+    routing = RoutingRecorder()
+    try:
+        tr, opt, _, wall = run_train(train, [
+            "--arch", MOE_CUT, "--steps", str(TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--profile-dir", str(prof), "--ckpt-dir", str(ckpt),
+            "--ckpt-every", str(TRAIN_STEPS), "--device", "cuda"])
+        peak_cli = torch.cuda.max_memory_allocated()
+        sorted_drop = routing.dropped("sorted")
+        history = list(tr.history)
+        median = statistics.median(h["step_time"] for h in history[1:])
+        # one more step of each dispatch under torch.profiler
+        tr.profiler = tr.ckpt = None  # the CLI's profile and checkpoint are written
+        trace = profiled_step(lambda: tr.run(opt, start_step=TRAIN_STEPS,
+                                             steps=1), median)
+        set_dispatch(tr.model, "rowwise")
+        step = make_train_step(tr.model, AdamWConfig(lr=3e-4,
+                                                     warmup_steps=10))
+        tokens = [{"tokens": torch.from_numpy(tr.pipeline.batch_at(
+            TRAIN_STEPS + i)).cuda()} for i in (1, 2)]
+        row = timed_steps(step, opt, tokens[:1])
+        row_drop = routing.dropped("rowwise")
+        row_trace = profiled_step(lambda: step(opt, tokens[1]),
+                                  row[0]["step_time"])
+    finally:
+        routing.restore()
+    launches = _build.launch_counts.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    del tr, opt, tokens, step
+    free_card()
+    out = {"arch": MOE_ARCH, "layers": f"{MOE_LAYERS} of 48",
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "wall_s": wall,
+           **_step_stats(cfg, TRAIN_SEQ, TRAIN_BATCH, TRAIN_BATCH * TRAIN_SEQ,
+                         history),
+           "max_memory_allocated_cli": peak_cli,
+           "max_memory_allocated": peak,
+           "dropped_sorted": sorted_drop, "trace_sorted": trace,
+           "rowwise_step": {"step_s": row[0]["step_time"],
+                            "loss": row[0]["loss"],
+                            "grad_norm": row[0]["grad_norm"],
+                            "dropped_rowwise": row_drop,
+                            "trace": row_trace},
+           "checkpoint_bytes": sum(f.stat().st_size
+                                   for f in ckpt.rglob("*") if f.is_file()),
+           "disk_free_bytes": shutil.disk_usage(work).free,
+           "launches": launches}
+    require(math.isfinite(row[0]["loss"]), f"rowwise MoE step: {out}")
+    require(sorted_drop["calls"] > 0 and row_drop["calls"] > 0,
+            f"an MoE dispatch never ran: {out}")
+    require((prof / "worker0.rprf").is_file(), "train_moe wrote no profile")
+    return out, prof / "worker0.rprf", ckpt
+
+
+def _raw(t):
+    """``t``'s bits as integers of its width (bf16 too)."""
+    import torch
+    return t.contiguous().view({2: torch.int16, 4: torch.int32,
+                                8: torch.int64}[t.element_size()])
+
+
+def _init_model(cfg, device: str, seed: int):
+    """The port's model for ``cfg`` on ``device``, its weights drawn by
+    ``init_params`` from ``seed``."""
+    import torch
+    from repro_torch.models import params as P
+    from repro_torch.models.api import build_model
+    model = build_model(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return P.from_reference(model, P.init_params(model.param_defs(), gen,
+                                                 cfg.dtype, device))
+
+
+def family_batch(cfg, rows: int, step: int, device: str) -> dict:
+    """One step's batch: tokens from ``TokenPipeline``; for the VLM,
+    ``vision_tokens`` seeded embeddings a row; for audio, AUDIO_FRAMES
+    seeded frames a row and AUDIO_TOKENS decoder tokens."""
+    import torch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.params import torch_dtype
+    seq = AUDIO_TOKENS if cfg.family == "audio" else TRAIN_SEQ
+    batch = {"tokens": torch.from_numpy(TokenPipeline(
+        cfg.vocab_size, seq, rows).batch_at(step)).to(device)}
+    gen = torch.Generator().manual_seed(SEED_FLOAT * 1000 + step)
+    extra = {"vlm": ("vision_embed", cfg.vision_tokens),
+             "audio": ("frames", AUDIO_FRAMES)}.get(cfg.family)
+    if extra:
+        name, n = extra
+        batch[name] = torch.randn((rows, n, cfg.d_model), generator=gen).to(
+            device, torch_dtype(cfg.dtype))
+    return batch
+
+
+def train_family_phase(cfg, steps: int) -> dict:
+    """``steps`` AdamW steps of ``cfg`` at batch TRAIN_BATCH through
+    ``make_train_step`` with the family's batch dict (the CLI feeds tokens
+    only, as the reference's does, so it cannot train these families),
+    and one more under ``torch.profiler``."""
+    import torch
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = _init_model(cfg, "cuda", 0)
+    opt = init_opt_state(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batches = [family_batch(cfg, TRAIN_BATCH, i, "cuda")
+               for i in range(steps + 1)]
+    step = make_train_step(model, AdamWConfig(lr=3e-4, warmup_steps=10))
+    history = timed_steps(step, opt, batches[:steps])
+    peak = torch.cuda.max_memory_allocated()
+    trace = profiled_step(lambda: step(opt, batches[steps]), statistics.median(
+        h["step_time"] for h in history[1:]))
+    del model, opt, batches, step
+    free_card()
+    if cfg.family == "audio":
+        shape_seq, tokens = AUDIO_FRAMES, TRAIN_BATCH * (AUDIO_FRAMES
+                                                         + AUDIO_TOKENS)
+        shapes = {"frames": AUDIO_FRAMES, "decoder_tokens": AUDIO_TOKENS}
+    else:
+        shape_seq, tokens = TRAIN_SEQ, TRAIN_BATCH * TRAIN_SEQ
+        shapes = {"seq": TRAIN_SEQ, "vision_tokens": cfg.vision_tokens}
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "encoder_layers": cfg.encoder_layers, "batch": TRAIN_BATCH,
+            **shapes, "init_s": init_s,
+            **_step_stats(cfg, shape_seq, TRAIN_BATCH, tokens, history),
+            "max_memory_allocated": peak, "trace": trace}
+
+
+def family_parity_phase() -> dict:
+    """Each family at full width, cut to the least depth its structure
+    allows, one seed, PARITY_BATCH rows: loss and gradient global norm on
+    the card against the port on the CPU (bf16 both); for the MoE also
+    the share of top-k choices the two agree on."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import params as P
+    from repro_torch.models.api import build_model, n_params
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optimizer import global_norm
+    out = {}
+    for fam, (arch, cut) in FAMILY_PARITY.items():
+        cfg = get_arch(arch).replace(**cut)
+        tree = P.init_params(build_model(cfg, device="meta").param_defs(),
+                             torch.Generator().manual_seed(SEED_FLOAT),
+                             cfg.dtype, "cpu")
+        batch = family_batch(cfg, PARITY_BATCH, 0, "cpu")
+        res, routes = {}, {}
+        for dev in ("cuda", "cpu"):
+            model = P.from_reference(build_model(cfg, device=dev), tree)
+            routing = RoutingRecorder()
+            try:
+                t0 = time.perf_counter()
+                loss, grads = value_and_grad(
+                    model, {k: v.to(dev) for k, v in batch.items()})
+                gnorm = global_norm(grads.values())
+                res[dev] = {"loss": float(loss), "grad_norm": float(gnorm),
+                            "seconds": time.perf_counter() - t0}
+            finally:
+                routing.restore()
+            routes[dev] = [c[-1].cpu() for c in routing.calls]
+            del model, grads
+        free_card()
+        rel_loss = abs(res["cuda"]["loss"] - res["cpu"]["loss"]) / abs(
+            res["cpu"]["loss"])
+        rel_gnorm = abs(res["cuda"]["grad_norm"]
+                        - res["cpu"]["grad_norm"]) / abs(res["cpu"]["grad_norm"])
+        row = {"arch": arch, "cut": cut, "params": n_params(cfg),
+               "batch": PARITY_BATCH, "seed": SEED_FLOAT, **res,
+               "rel_loss": rel_loss, "rel_grad_norm": rel_gnorm}
+        if cfg.n_experts:
+            require(len(routes["cuda"]) == len(routes["cpu"]) > 0,
+                    f"{fam}: the routing calls differ")
+            agree = total = 0
+            for a, b in zip(routes["cuda"], routes["cpu"]):
+                hit = torch.zeros(a.shape[0], cfg.n_experts, dtype=torch.bool)
+                hit.scatter_(1, a, True)
+                agree += int(hit.gather(1, b).sum())
+                total += b.numel()
+            row["topk_agreement"] = agree / total
+            row["routing_calls"] = len(routes["cpu"])
+        out[fam] = row
+        require(rel_loss <= PARITY_RTOL_LOSS and rel_gnorm <= PARITY_RTOL_GNORM,
+                f"{fam}: card and CPU disagree: {row}")
+    out["rtol_loss"], out["rtol_grad_norm"] = (PARITY_RTOL_LOSS,
+                                               PARITY_RTOL_GNORM)
+    return out
+
+
+def moe_determinism_phase() -> dict:
+    """One MoE step's loss and gradients (the parity cut, batch TRAIN_BATCH
+    x TRAIN_SEQ) twice on the card with each dispatch: bit-equal."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.train.loop import value_and_grad
+    arch, cut = FAMILY_PARITY["moe"]
+    out = {"arch": arch, "cut": cut, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ}
+    for dispatch in ("sorted", "rowwise"):
+        cfg = get_arch(arch).replace(moe_dispatch=dispatch, **cut)
+        model = _init_model(cfg, "cuda", SEED_INT)
+        batch = family_batch(cfg, TRAIN_BATCH, 1, "cuda")
+        (l1, g1), (l2, g2) = (value_and_grad(model, batch) for _ in range(2))
+        differ = [n for n in g1 if not torch.equal(_raw(g1[n]),
+                                                   _raw(g2[n]))]
+        out[dispatch] = {"loss": float(l1),
+                         "loss_equal": bool(torch.equal(_raw(l1), _raw(l2))),
+                         "gradients": len(g1), "gradients_differ": differ}
+        del model, g1, g2
+        free_card()
+        require(out[dispatch]["loss_equal"] and not differ,
+                f"MoE step not bit-equal ({dispatch}): {out[dispatch]}")
+    return out
+
+
+def train_profile_phase(analyze, rprf: Path, work: Path,
+                        db: str = "train_db") -> dict:
+    """The port's analyze on the card over a train profile."""
     from repro_torch.core.metrics import INCLUSIVE_BIT, MetricRegistry
     from repro_torch.core.pms import PMSReader
     from repro_torch.kernels import _build
     _build.launch_counts.reset()
-    summary, wall = run_analyze(analyze, [str(rprf)], work / "train_db",
+    summary, wall = run_analyze(analyze, [str(rprf)], work / db,
                                 "--compute", "device", "--device", "cuda")
     counts = _build.launch_counts.snapshot()
     with PMSReader(summary["pms"]) as r:
@@ -1390,9 +1789,9 @@ def train_profile_phase(analyze, rprf: Path, work: Path) -> dict:
     return out
 
 
-def resume_phase(train, ckpt: Path) -> dict:
+def resume_phase(train, ckpt: Path, arch: str = ARCH) -> dict:
     tr, _, stdout, wall = run_train(train, [
-        "--arch", ARCH, "--steps", "1", "--batch", str(TRAIN_BATCH),
+        "--arch", arch, "--steps", "1", "--batch", str(TRAIN_BATCH),
         "--seq", str(TRAIN_SEQ), "--ckpt-dir", str(ckpt), "--resume",
         "--device", "cuda"])
     history = tr.history
@@ -1734,6 +2133,23 @@ def main() -> int:
             lambda: q8.int8_quant_cuda(x, q8.DEFAULT_BLOCK_N),
             lambda: q8.int8_quant_plain(x, q8.DEFAULT_BLOCK_N), None,
             9 * x.numel() + 4 * nb, 8 * x.numel(), True))
+        del x
+        free_card()
+
+        # -- the MoE, VLM and audio families at full width (depth cut)
+        from repro_torch.configs.base import get_arch
+        moe_out, moe_rprf, moe_ckpt = train_moe_phase(train, work)
+        moe_out["resume"] = resume_phase(train, moe_ckpt, MOE_CUT)
+        shutil.rmtree(moe_ckpt)  # 31 GB of disk
+        emit({"train_moe": moe_out})
+        emit({"train_moe_profile": train_profile_phase(analyze, moe_rprf,
+                                                       work, "moe_db")})
+        emit({"train_vlm": train_family_phase(
+            get_arch(VLM_ARCH).replace(n_layers=VLM_LAYERS), FAMILY_STEPS)})
+        emit({"train_audio": train_family_phase(get_arch(AUDIO_ARCH),
+                                                FAMILY_STEPS)})
+        emit({"family_parity": family_parity_phase()})
+        emit({"moe_determinism": moe_determinism_phase()})
         for e in entries:  # the launches of the ingest phase's float twin
             key = next(k for k in (*INGEST_KERNELS, "scatter_add",
                                    "int8_quant") if e["name"].startswith(k))

@@ -9,14 +9,23 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import params as P
-from repro_torch.models.lm import TransformerLM
+from repro_torch.models.lm import _NOT_PORTED, TransformerLM
+from repro_torch.models.whisper import WhisperModel
 
 
 def build_model(cfg: ModelConfig, *, device="cpu", dtype=None):
     """The model for ``cfg``, its parameters allocated uninitialised on
-    ``device`` (``device="meta"`` allocates nothing).  Only the dense
-    family is ported; the others raise ``NotImplementedError``."""
-    return TransformerLM(cfg, device=device, dtype=dtype)
+    ``device`` (``device="meta"`` allocates nothing).  The dense, MoE, VLM
+    and audio families are ported; the SSM and hybrid families raise
+    ``NotImplementedError``."""
+    if cfg.family in ("dense", "moe", "vlm"):
+        return TransformerLM(cfg, device=device, dtype=dtype)
+    if cfg.family == "audio":
+        return WhisperModel(cfg, device=device, dtype=dtype)
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(f"{cfg.family} family: " + _NOT_PORTED.format(
+            "the SSM and hybrid families, models/ssm.py"))
+    raise ValueError(cfg.family)
 
 
 def n_params(cfg: ModelConfig) -> int:
@@ -24,16 +33,27 @@ def n_params(cfg: ModelConfig) -> int:
 
 
 def n_active_params(cfg: ModelConfig) -> int:
-    """Parameters active per token: all of them in the dense family (the
-    MoE top-k share comes with that family)."""
-    return n_params(cfg)
+    """MoE: only top_k of n_experts expert params are active per token."""
+    if not cfg.n_experts:
+        return n_params(cfg)
+    defs = build_model(cfg, device="meta").param_defs()
+    total = P.count(defs)
+    expert = sum(P.count({k: v}) for k, v in defs["layers"].items()
+                 if k.startswith("we_"))
+    return total - expert + expert * cfg.top_k // cfg.n_experts
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
-    """MODEL_FLOPS = 6*N*D tokens (train) / 2*N*D (inference step)."""
+    """MODEL_FLOPS = 6*N*D tokens (train) / 2*N*D (inference step); audio
+    trains on its frames and ``min(max_decoder_len, seq_len)`` decoder
+    tokens a row."""
     n = n_active_params(cfg)
     if shape.kind == "train":
-        return 6.0 * n * shape.global_batch * shape.seq_len
+        toks = shape.global_batch * shape.seq_len
+        if cfg.family == "audio":
+            toks = shape.global_batch * (shape.seq_len
+                                         + min(cfg.max_decoder_len, shape.seq_len))
+        return 6.0 * n * toks
     if shape.kind == "prefill":
         return 2.0 * n * shape.global_batch * shape.seq_len
     return 2.0 * n * shape.global_batch  # one decoded token per sequence

@@ -1,5 +1,6 @@
 """Shared model layers: RMS norm, RoPE, chunked (flash-style) attention,
-GLU MLPs and chunked cross-entropy, in plain PyTorch.
+GLU MLPs, sinusoidal positions and chunked cross-entropy, in plain
+PyTorch.
 
 Port of :mod:`repro.models.layers`.  None of these was a Pallas kernel in
 the reference (XLA compiled them), so library calls are used freely.  The
@@ -121,6 +122,15 @@ def glu_mlp(x, wg, wu, wd, act: str) -> torch.Tensor:
     h = (F.silu(x @ wg) if act == "silu"
          else F.gelu(x @ wg, approximate="tanh"))
     return (h * (x @ wu)) @ wd
+
+
+def sinusoid_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """(n, d) f32: ``sin`` of each position over ``10000^(2i/d)`` in the
+    first half, ``cos`` in the second."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def chunked_softmax_xent(x, w_out, labels, mask=None, chunk: int = 512

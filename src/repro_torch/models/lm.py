@@ -1,17 +1,20 @@
-"""Decoder-only transformer LM, dense GQA family (yi / codeqwen / gemma /
-qwen3).
+"""Decoder-only transformer LM: dense GQA (yi / codeqwen / gemma / qwen3),
+MoE (grok / qwen3-moe), and VLM with interleaved gated cross-attention
+(llama-3.2-vision).
 
-Port of the dense part of :mod:`repro.models.lm`.  One :class:`Block`
-module per layer sits in a ``ModuleList`` and a Python loop takes the
-place of the reference's ``lax.scan``; ``cfg.remat`` checkpoints each
-block (``torch.utils.checkpoint``, non-reentrant).  Parameter names and
-shapes are the reference's (``models.params`` converts the stacked
-layout), and weights multiply as ``x @ w``.
+Port of :mod:`repro.models.lm`, train mode.  One :class:`Block` module per
+layer sits in a ``ModuleList`` and a Python loop takes the place of the
+reference's ``lax.scan``; ``cfg.remat`` checkpoints each block
+(``torch.utils.checkpoint``, non-reentrant), never the VLM's
+cross-attention, as the reference does.  For the VLM the layers run in
+``cross_attn_every``-sized groups, each after its group's
+:class:`CrossAttention`.  Parameter names and shapes are the reference's
+(``models.params`` converts the stacked layout), and weights multiply as
+``x @ w``.
 
-Not ported yet (``ROADMAP.md`` §1): the MoE and VLM families,
-``prefill`` and ``decode_step`` (serving), and the sharding constraints
-and GQA expansion, which need a mesh: without sharding rules the
-reference does not expand either.
+Not ported yet (``ROADMAP.md`` §1): ``prefill`` and ``decode_step``
+(serving), and the sharding constraints and GQA expansion, which need a
+mesh: without sharding rules the reference does not expand either.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (chunked_softmax_xent, flash_attention,
                                        glu_mlp, rms_norm, rope)
 from repro_torch.models.params import ParamDef, torch_dtype
@@ -31,26 +35,37 @@ def _param(shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
+def _params(module: nn.Module, shapes, device, dtype) -> None:
+    for name, shape in shapes:
+        setattr(module, name, _param(shape, device, dtype))
+
+
 class Block(nn.Module):
-    """One pre-norm layer: GQA self-attention, then the GLU MLP."""
+    """One pre-norm layer: GQA self-attention, then the GLU MLP or, in the
+    MoE family, the expert sublayer.  ``forward`` returns ``(x, aux)``:
+    aux is the MoE load-balancing loss, ``None`` without experts."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
         self.cfg = cfg
         D, H, KVH, hd, F_ = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                              cfg.hd, cfg.d_ff)
-        for name, shape in [("ln_attn", (D,)), ("wq", (D, H * hd)),
-                            ("wk", (D, KVH * hd)), ("wv", (D, KVH * hd)),
-                            ("wo", (H * hd, D)), ("ln_mlp", (D,)),
-                            ("w_gate", (D, F_)), ("w_up", (D, F_)),
-                            ("w_down", (F_, D))]:
-            setattr(self, name, _param(shape, device, dtype))
+        _params(self, [("ln_attn", (D,)), ("wq", (D, H * hd)),
+                       ("wk", (D, KVH * hd)), ("wv", (D, KVH * hd)),
+                       ("wo", (H * hd, D)), ("ln_mlp", (D,))], device, dtype)
         if cfg.qk_norm:
-            self.q_norm = _param((hd,), device, dtype)
-            self.k_norm = _param((hd,), device, dtype)
+            _params(self, [("q_norm", (hd,)), ("k_norm", (hd,))], device,
+                    dtype)
+        if cfg.n_experts:
+            E, Fe = cfg.n_experts, (cfg.moe_d_ff or cfg.d_ff)
+            _params(self, [("router", (D, E)), ("we_gate", (E, D, Fe)),
+                           ("we_up", (E, D, Fe)), ("we_down", (E, Fe, D))],
+                    device, dtype)
+        else:
+            _params(self, [("w_gate", (D, F_)), ("w_up", (D, F_)),
+                           ("w_down", (F_, D))], device, dtype)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
         return self.mlp(self.attention(x, positions))
 
     def attention(self, x, positions):
@@ -73,20 +88,59 @@ class Block(nn.Module):
     def mlp(self, x):
         cfg = self.cfg
         h = rms_norm(x, self.ln_mlp, cfg.norm_eps)
-        return x + glu_mlp(h, self.w_gate, self.w_up, self.w_down, cfg.act)
+        if cfg.n_experts:
+            block_fn = (moe_mod.moe_block_rowwise
+                        if cfg.moe_dispatch == "rowwise" else moe_mod.moe_block)
+            out, probs = block_fn(h, self.router, self.we_gate, self.we_up,
+                                  self.we_down, top_k=cfg.top_k,
+                                  capacity_factor=cfg.capacity_factor,
+                                  act=cfg.act)
+            return x + out, moe_mod.moe_aux_loss(probs)
+        return x + glu_mlp(h, self.w_gate, self.w_up, self.w_down,
+                           cfg.act), None
+
+
+class CrossAttention(nn.Module):
+    """Gated cross-attention over the vision embeddings (llama-3.2-vision
+    style): ``x + tanh(gate) * attn(x, memory)``, the gate's tanh in f32."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        D, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        _params(self, [("ln", (D,)), ("wq", (D, H * hd)),
+                       ("wk", (D, KVH * hd)), ("wv", (D, KVH * hd)),
+                       ("wo", (H * hd, D)), ("gate", ())], device, dtype)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        h = rms_norm(x, self.ln, cfg.norm_eps)
+        q = (h @ self.wq).reshape(B, S, H, hd)
+        k = (memory @ self.wk).reshape(B, -1, KVH, hd)
+        v = (memory @ self.wv).reshape(B, -1, KVH, hd)
+        attn = flash_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
+                               kv_chunk=cfg.kv_chunk)
+        out = attn.reshape(B, S, H * hd) @ self.wo
+        gate = torch.tanh(self.gate.float()).to(x.dtype)
+        return x + gate * out
 
 
 class TransformerLM(nn.Module):
-    """The dense LM.  Parameters are allocated uninitialised on ``device``
-    in ``dtype`` (default ``cfg.dtype``); fill them with
+    """The dense, MoE and VLM LMs.  Parameters are allocated uninitialised
+    on ``device`` in ``dtype`` (default ``cfg.dtype``); fill them with
     :func:`repro_torch.models.params.init_params` and
     :func:`~repro_torch.models.params.from_reference`."""
 
     def __init__(self, cfg: ModelConfig, *, device="cpu", dtype=None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
                 f"{cfg.family} family: " + _NOT_PORTED.format("other model families"))
+        if cfg.family == "vlm" and cfg.n_layers % cfg.cross_attn_every:
+            raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
+                             f"cross_attn_every {cfg.cross_attn_every}")
         self.cfg = cfg
         dtype = torch_dtype(cfg.dtype if dtype is None else dtype)
         D, V = cfg.d_model, cfg.vocab_size
@@ -96,10 +150,14 @@ class TransformerLM(nn.Module):
         self.final_norm = _param((D,), device, dtype)
         if not cfg.tie_embeddings:
             self.lm_head = _param((D, V), device, dtype)
+        if cfg.family == "vlm":
+            self.cross = nn.ModuleList(
+                CrossAttention(cfg, device, dtype)
+                for _ in range(cfg.n_layers // cfg.cross_attn_every))
 
     # -- parameters ----------------------------------------------------------
     def param_defs(self) -> dict:
-        """The reference's ParamDef tree (dense family)."""
+        """The reference's ParamDef tree."""
         cfg = self.cfg
         L, D, H, KVH, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                             cfg.n_kv_heads, cfg.hd)
@@ -111,13 +169,24 @@ class TransformerLM(nn.Module):
             "wv": ParamDef((L, D, KVH * hd), ("layers", "fsdp", "kv_heads")),
             "wo": ParamDef((L, H * hd, D), ("layers", "heads", "fsdp")),
             "ln_mlp": ParamDef((L, D), ("layers", None), "zeros"),
-            "w_gate": ParamDef((L, D, F_), ("layers", "fsdp", "ff")),
-            "w_up": ParamDef((L, D, F_), ("layers", "fsdp", "ff")),
-            "w_down": ParamDef((L, F_, D), ("layers", "ff", "fsdp")),
         }
         if cfg.qk_norm:
             layer["q_norm"] = ParamDef((L, hd), ("layers", None), "zeros")
             layer["k_norm"] = ParamDef((L, hd), ("layers", None), "zeros")
+        if cfg.n_experts:
+            E, Fe = cfg.n_experts, (cfg.moe_d_ff or cfg.d_ff)
+            layer.update({
+                "router": ParamDef((L, D, E), ("layers", None, None)),
+                "we_gate": ParamDef((L, E, D, Fe), ("layers", "experts", "fsdp", "expert_ff")),
+                "we_up": ParamDef((L, E, D, Fe), ("layers", "experts", "fsdp", "expert_ff")),
+                "we_down": ParamDef((L, E, Fe, D), ("layers", "experts", "expert_ff", "fsdp")),
+            })
+        else:
+            layer.update({
+                "w_gate": ParamDef((L, D, F_), ("layers", "fsdp", "ff")),
+                "w_up": ParamDef((L, D, F_), ("layers", "fsdp", "ff")),
+                "w_down": ParamDef((L, F_, D), ("layers", "ff", "fsdp")),
+            })
         defs = {
             "embed": ParamDef((V, D), ("vocab", "fsdp"), "embed"),
             "layers": layer,
@@ -125,6 +194,16 @@ class TransformerLM(nn.Module):
         }
         if not cfg.tie_embeddings:
             defs["lm_head"] = ParamDef((D, V), ("fsdp", "vocab"))
+        if cfg.family == "vlm":
+            nC = cfg.n_layers // cfg.cross_attn_every
+            defs["cross"] = {
+                "ln": ParamDef((nC, D), (None, None), "zeros"),
+                "wq": ParamDef((nC, D, H * hd), (None, "fsdp", "heads")),
+                "wk": ParamDef((nC, D, KVH * hd), (None, "fsdp", "kv_heads")),
+                "wv": ParamDef((nC, D, KVH * hd), (None, "fsdp", "kv_heads")),
+                "wo": ParamDef((nC, H * hd, D), (None, "heads", "fsdp")),
+                "gate": ParamDef((nC,), (None,), "zeros"),
+            }
         return defs
 
     # -- forward -------------------------------------------------------------
@@ -134,27 +213,50 @@ class TransformerLM(nn.Module):
     def _head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Mean next-token cross-entropy of ``tokens`` (B, S)."""
+    def _blocks(self, first: int, last: int, x, positions, aux: list):
+        """Layers ``first..last-1`` over ``x``; their MoE aux losses are
+        appended to ``aux``."""
+        for i in range(first, last):
+            blk = self.layers[i]
+            if self.cfg.remat:
+                x, a = checkpoint(blk, x, positions, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = blk(x, positions)
+            if a is not None:
+                aux.append(a)
+        return x
+
+    def forward(self, tokens: torch.Tensor,
+                vision_embed: torch.Tensor | None = None) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``tokens`` (B, S), plus the MoE
+        load-balancing term; the VLM attends to ``vision_embed`` (B, T, D)."""
         cfg = self.cfg
         B, S = tokens.shape
         x = self._embed_in(tokens)
         positions = torch.arange(S, device=tokens.device)[None, :]
-        for blk in self.layers:
-            if cfg.remat:
-                x = checkpoint(blk, x, positions, use_reentrant=False,
-                               preserve_rng_state=False)
-            else:
-                x = blk(x, positions)
+        aux: list[torch.Tensor] = []
+        if cfg.family == "vlm":
+            every = cfg.cross_attn_every
+            vis = vision_embed.to(x.dtype)
+            for g, cross in enumerate(self.cross):
+                x = cross(x, vis)
+                x = self._blocks(g * every, (g + 1) * every, x, positions,
+                                 aux)
+        else:
+            x = self._blocks(0, cfg.n_layers, x, positions, aux)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         labels = torch.roll(tokens, -1, dims=1)
         mask = torch.ones((B, S), device=tokens.device)
         mask[:, -1] = 0.0
-        # the reference adds 0.01 * aux / n_layers; aux is 0 without MoE
-        return chunked_softmax_xent(x, self._head(), labels, mask)
+        loss = chunked_softmax_xent(x, self._head(), labels, mask)
+        if aux:  # the reference adds 0.01 * aux / n_layers, 0 without MoE
+            loss = loss + 0.01 * sum(aux) / max(cfg.n_layers, 1)
+        return loss
 
     def loss_fn(self, batch: dict) -> torch.Tensor:
-        return self(batch["tokens"])
+        vision = batch["vision_embed"] if self.cfg.family == "vlm" else None
+        return self(batch["tokens"], vision)
 
     def prefill(self, *args, **kwargs):
         raise NotImplementedError("prefill: " + _NOT_PORTED.format("serving"))

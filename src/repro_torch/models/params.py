@@ -1,10 +1,11 @@
 """Parameter definitions, initialisation, and the weights-across functions.
 
 Port of :mod:`repro.models.params`.  Models declare their parameters as a
-nested dict of :class:`ParamDef` in the reference's layout: the layer
-stack is one ``(L, ...)`` array per name under ``"layers"``.  The port's
-modules hold one parameter per layer instead (``layers.<i>.<name>``), so
-this module also converts between the two:
+nested dict of :class:`ParamDef` in the reference's layout: each layer
+stack is one ``(L, ...)`` array per name under its group (:data:`STACKED`:
+``layers``, the VLM's ``cross``, whisper's ``enc`` and ``dec``).  The
+port's modules hold one parameter per layer instead
+(``<group>.<i>.<name>``), so this module also converts between the two:
 
 * :func:`unstack` / :func:`stack` — a reference tree and a flat dict keyed
   by module parameter name;
@@ -86,20 +87,24 @@ def torch_dtype(dtype) -> torch.dtype:
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
 
+# the reference's stacked groups: one (L, ...) array per name, scanned
+STACKED = frozenset({"layers", "cross", "enc", "dec"})
+
+
 def _tensor(a) -> torch.Tensor:
     return a if isinstance(a, torch.Tensor) else torch.tensor(np.asarray(a))
 
 
 def unstack(tree: dict) -> dict[str, torch.Tensor]:
     """Reference tree -> ``{module parameter name: tensor}``: each stacked
-    ``layers/<name>`` array becomes ``layers.<i>.<name>``."""
+    ``<group>/<name>`` array becomes ``<group>.<i>.<name>``."""
     flat = {}
     for path, leaf in flatten(tree):
         parts = path.split("/")
         t = _tensor(leaf)
-        if parts[0] == "layers":
+        if parts[0] in STACKED:
             for i in range(t.shape[0]):
-                flat[".".join(["layers", str(i), *parts[1:]])] = t[i]
+                flat[".".join([parts[0], str(i), *parts[1:]])] = t[i]
         else:
             flat[".".join(parts)] = t
     return flat
@@ -109,21 +114,20 @@ def stack(named: dict[str, torch.Tensor]) -> dict:
     """Inverse of :func:`unstack`: ``{name: tensor}`` -> reference tree,
     the per-layer tensors stacked along a new axis 0."""
     tree: dict = {}
-    per_layer: dict[str, dict[int, torch.Tensor]] = {}
+    per_layer: dict[tuple[str, str], dict[int, torch.Tensor]] = {}
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            per_layer.setdefault(".".join(parts[2:]), {})[int(parts[1])] = t
+        if parts[0] in STACKED:
+            key = (parts[0], ".".join(parts[2:]))
+            per_layer.setdefault(key, {})[int(parts[1])] = t
             continue
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = t
-    if per_layer:
-        layers = tree.setdefault("layers", {})
-        for name, by_index in per_layer.items():
-            layers[name] = torch.stack([by_index[i]
-                                        for i in sorted(by_index)])
+    for (group, name), by_index in per_layer.items():
+        tree.setdefault(group, {})[name] = torch.stack(
+            [by_index[i] for i in sorted(by_index)])
     return tree
 
 

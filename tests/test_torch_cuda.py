@@ -771,3 +771,61 @@ def test_full_width_train_step_on_card(dev):
     assert not torch.equal(before, model.layers[0].wq)
     assert model.embed.dtype == torch.bfloat16
     assert opt["m"]["embed"].dtype == torch.float32
+
+
+def _family_model(arch, device, **kw):
+    """A reduced model of ``arch`` in bf16 (``kw`` over the config), its
+    weights from one seed on the CPU."""
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.models import params as P
+    from repro_torch.models.api import build_model
+    cfg = reduced(get_arch(arch)).replace(dtype="bfloat16", **kw)
+    tree = P.init_params(build_model(cfg, device="meta").param_defs(),
+                         torch.Generator().manual_seed(0), cfg.dtype, "cpu")
+    return cfg, P.from_reference(build_model(cfg, device=device), tree)
+
+
+def _family_batch(cfg, device, rows=4, seq=32):
+    from repro_torch.data import TokenPipeline
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.from_numpy(
+        TokenPipeline(cfg.vocab_size, seq, rows).batch_at(0))}
+    if cfg.family == "vlm":
+        batch["vision_embed"] = torch.randn(
+            (rows, cfg.vision_tokens, cfg.d_model), generator=gen)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((rows, 48, cfg.d_model), generator=gen)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("dispatch", ["sorted", "rowwise"])
+def test_moe_step_bits_repeat_on_card(dev, dispatch):
+    """A reduced MoE step in bf16 at the published capacity factor 1.25
+    (copies are dropped) twice on the card: the loss and every gradient
+    bit-equal (no float atomics decide a value)."""
+    from repro_torch.train.loop import value_and_grad
+    cfg, model = _family_model("qwen3-moe-30b-a3b", dev, capacity_factor=1.25,
+                               moe_dispatch=dispatch)
+    batch = _family_batch(cfg, dev, rows=8, seq=64)
+    (l1, g1), (l2, g2) = (value_and_grad(model, batch) for _ in range(2))
+    assert torch.equal(l1.view(torch.int32), l2.view(torch.int32))
+    for n in g1:
+        assert torch.equal(g1[n].view(torch.int16), g2[n].view(torch.int16)), n
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "llama-3.2-vision-11b",
+                                  "whisper-small"])
+def test_family_card_matches_cpu(dev, arch):
+    """Each ported family, reduced, in bf16: loss within 1e-2 and gradient
+    global norm within 2e-2 relative between the card and the CPU."""
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optimizer import global_norm
+    res = []
+    for device in (dev, torch.device("cpu")):
+        cfg, model = _family_model(arch, device)
+        loss, grads = value_and_grad(model, _family_batch(cfg, device))
+        res.append((float(loss), float(global_norm(grads.values()))))
+    (lc, gc), (l0, g0) = res
+    assert np.isfinite(lc) and np.isfinite(gc)
+    assert lc == pytest.approx(l0, rel=1e-2)
+    assert gc == pytest.approx(g0, rel=2e-2)
