@@ -134,11 +134,33 @@ read just after:
     1,500 seeded frames and 448 decoder tokens a row) — 3 steps each at
     batch 8 through ``make_train_step``, and a fourth under
     ``torch.profiler``.  ``family_parity`` — each family
-    cut to its least depth (MoE 2 layers, VLM one group of 5, audio 2 + 2),
-    one seed, batch 2: loss and gradient norm on the card against the CPU
+    cut to its least depth (MoE 2 layers, VLM one group of 5, audio 2 + 2;
+    item 12's two), one seed, batch 2: loss and gradient norm on the card
+    against the CPU
     within 1e-2 and 2e-2 relative (bf16), and the MoE's top-k agreement.
     ``moe_determinism`` — one MoE step (2 layers, batch 8 x 128) twice on
     the card with each dispatch: loss and every gradient bit-equal.
+12. The SSM and hybrid families at full width and the published chunk of
+    256, each freeing the card before the next.  ``train_hybrid`` —
+    zamba2-7b cut to 13 of 81 layers (the shared attention block before
+    groups of 6, 6 and 1), registered in process and run through
+    ``repro_torch.launch.train`` at batch 8 x 512 (two chunks a layer), 5
+    steps with a profile and a checkpoint, one more step under
+    ``torch.profiler``, then ``--resume`` takes one more step and the
+    checkpoint is deleted: step times, tokens/s, model TFLOP/s, peak
+    memory, losses and gradient norms, which must all be finite.
+    ``train_hybrid_profile`` — the port's ``analyze`` on the card over that
+    run's ``worker0.rprf``.  ``train_xlstm`` — xlstm-350m whole (18 mLSTM
+    and 6 sLSTM blocks) at batch 8 x 512 through ``make_train_step``, 3
+    steps and a traced fourth, all finite, and one mLSTM and one sLSTM
+    block's forward and backward timed alone.  ``ssm_scan`` —
+    ``linear_rnn_chunked`` alone at both families' full shapes (batch 8 x
+    512; zamba2: 112 heads, P 64, N 64, keys shared; xlstm: 4 heads, P 513,
+    N 512, keys per head), seeded log-decays as at initialisation: output,
+    final state and gradients at chunk 256 against chunk 64 within 1e-4 of
+    each tensor's largest, every gradient finite; peak memory and call and
+    device ms of one forward and backward.  ``family_parity`` holds both
+    families too (zamba2 cut to 2 layers, xlstm to 4 blocks, batch 2 x 256).
 
 Every line before the last is one JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero without
@@ -181,9 +203,22 @@ MOE_LAYERS, VLM_LAYERS = 4, 10          # of 48 and 40
 MOE_CUT = f"{MOE_ARCH}-{MOE_LAYERS}l"   # registered in process
 FAMILY_STEPS = 3                        # VLM and audio
 AUDIO_FRAMES, AUDIO_TOKENS = 1500, 448  # whisper's 30 s window, its decoder
+# the SSM and hybrid families at full width: every layer's scan runs whole
+# chunks of the published 256, two a row in training and one in parity
+HYBRID_ARCH, XLSTM_ARCH = "zamba2-7b", "xlstm-350m"
+HYBRID_LAYERS = 13                          # of 81: groups of 6, 6 and 1
+HYBRID_CUT = f"{HYBRID_ARCH}-{HYBRID_LAYERS}l"  # registered in process
+SSM_TRAIN_SEQ, SSM_PARITY_SEQ = 512, 256
+# linear_rnn_chunked alone at each family's full shape (batch 8 x 512)
+SSM_SCAN_SHAPES = {"zamba2": dict(H=112, P=64, N=64, Hk=1),
+                   "xlstm": dict(H=4, P=513, N=512, Hk=4)}
+SSM_SCAN_CHUNKS = (256, 64)
+SSM_SCAN_TOL = 1e-4  # of each tensor's largest: the chunkings sum apart
 FAMILY_PARITY = {"moe": (MOE_ARCH, {"n_layers": 2}),
                  "vlm": (VLM_ARCH, {"n_layers": 5}),
-                 "audio": (AUDIO_ARCH, {"n_layers": 2, "encoder_layers": 2})}
+                 "audio": (AUDIO_ARCH, {"n_layers": 2, "encoder_layers": 2}),
+                 "hybrid": (HYBRID_ARCH, {"n_layers": 2}),
+                 "ssm": (XLSTM_ARCH, {"n_layers": 4})}
 SKEW_ROWS, SKEW_SHARE = 200_000, 0.9  # the skewed scatter-add input
 
 
@@ -1494,27 +1529,36 @@ def _step_stats(cfg, shape_seq: int, batch: int, tokens_per_step: int,
 def profiled_step(fn, median_step_s: float) -> dict:
     """``fn()``, one train step, under ``torch.profiler``: its wall ms to a
     synchronise, the card's kernel ms and launches, the idle share over
-    that step and over the unprofiled median step, and the top kernels."""
+    that step and over the unprofiled median step, and the top kernels.
+    Only the card's activity is traced: none of these reads the host's
+    ops, and an xLSTM step runs over a million of them, whose events took
+    ~90 s to gather and average."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        metrics = fn()
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    profiler_s = time.perf_counter() - t_prof - step_ms / 1e3
     busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
     require(busy_ms > 0, "torch.profiler saw no device time")
     top = sorted(kernels, key=_dev_us, reverse=True)[:8]
-    return {"step_ms_profiled": step_ms, "device_ms": busy_ms,
-            "kernel_launches": sum(e.count for e in kernels),
-            "idle_share": 1.0 - busy_ms / step_ms,
-            "idle_share_vs_median_step": 1.0 - busy_ms / (median_step_s * 1e3),
-            "top_kernels": [{"name": e.key[:80], "count": e.count,
-                             "ms": _dev_us(e) / 1e3} for e in top]}
+    out = {"step_ms_profiled": step_ms, "device_ms": busy_ms,
+           "kernel_launches": sum(e.count for e in kernels),
+           "idle_share": 1.0 - busy_ms / step_ms,
+           "idle_share_vs_median_step": 1.0 - busy_ms / (median_step_s * 1e3),
+           "top_kernels": [{"name": e.key[:80], "count": e.count,
+                            "ms": _dev_us(e) / 1e3} for e in top],
+           "profiler_overhead_s": profiler_s}
+    if isinstance(metrics, dict) and "loss" in metrics:  # a train step's
+        out["loss"] = float(metrics["loss"])
+        out["grad_norm"] = float(metrics["grad_norm"])
+    return out
 
 
 def timed_steps(step_fn, opt, batches) -> list[dict]:
@@ -1621,14 +1665,15 @@ def _init_model(cfg, device: str, seed: int):
                                                  cfg.dtype, device))
 
 
-def family_batch(cfg, rows: int, step: int, device: str) -> dict:
-    """One step's batch: tokens from ``TokenPipeline``; for the VLM,
-    ``vision_tokens`` seeded embeddings a row; for audio, AUDIO_FRAMES
-    seeded frames a row and AUDIO_TOKENS decoder tokens."""
+def family_batch(cfg, rows: int, step: int, device: str,
+                 seq: int = TRAIN_SEQ) -> dict:
+    """One step's batch: ``seq`` tokens a row from ``TokenPipeline``; for
+    the VLM, ``vision_tokens`` seeded embeddings a row; for audio,
+    AUDIO_FRAMES seeded frames a row and AUDIO_TOKENS decoder tokens."""
     import torch
     from repro_torch.data import TokenPipeline
     from repro_torch.models.params import torch_dtype
-    seq = AUDIO_TOKENS if cfg.family == "audio" else TRAIN_SEQ
+    seq = AUDIO_TOKENS if cfg.family == "audio" else seq
     batch = {"tokens": torch.from_numpy(TokenPipeline(
         cfg.vocab_size, seq, rows).batch_at(step)).to(device)}
     gen = torch.Generator().manual_seed(SEED_FLOAT * 1000 + step)
@@ -1641,11 +1686,13 @@ def family_batch(cfg, rows: int, step: int, device: str) -> dict:
     return batch
 
 
-def train_family_phase(cfg, steps: int) -> dict:
-    """``steps`` AdamW steps of ``cfg`` at batch TRAIN_BATCH through
-    ``make_train_step`` with the family's batch dict (the CLI feeds tokens
-    only, as the reference's does, so it cannot train these families),
-    and one more under ``torch.profiler``."""
+def train_family_phase(cfg, steps: int, seq: int = TRAIN_SEQ) -> dict:
+    """``steps`` AdamW steps of ``cfg`` at batch TRAIN_BATCH x ``seq``
+    through ``make_train_step`` with the family's batch dict (the CLI
+    feeds tokens only, as the reference's does, so it cannot train the VLM
+    and audio families), and one more under ``torch.profiler``; for the
+    xLSTM also one mLSTM and one sLSTM block's forward and backward
+    alone."""
     import torch
     from repro_torch.train.loop import make_train_step
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
@@ -1655,13 +1702,14 @@ def train_family_phase(cfg, steps: int) -> dict:
     opt = init_opt_state(dict(model.named_parameters()))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    batches = [family_batch(cfg, TRAIN_BATCH, i, "cuda")
+    batches = [family_batch(cfg, TRAIN_BATCH, i, "cuda", seq)
                for i in range(steps + 1)]
     step = make_train_step(model, AdamWConfig(lr=3e-4, warmup_steps=10))
     history = timed_steps(step, opt, batches[:steps])
     peak = torch.cuda.max_memory_allocated()
     trace = profiled_step(lambda: step(opt, batches[steps]), statistics.median(
         h["step_time"] for h in history[1:]))
+    blocks = xlstm_block_ms(model, seq) if hasattr(model, "slstm") else None
     del model, opt, batches, step
     free_card()
     if cfg.family == "audio":
@@ -1669,20 +1717,27 @@ def train_family_phase(cfg, steps: int) -> dict:
                                                          + AUDIO_TOKENS)
         shapes = {"frames": AUDIO_FRAMES, "decoder_tokens": AUDIO_TOKENS}
     else:
-        shape_seq, tokens = TRAIN_SEQ, TRAIN_BATCH * TRAIN_SEQ
-        shapes = {"seq": TRAIN_SEQ, "vision_tokens": cfg.vision_tokens}
-    return {"arch": cfg.name, "layers": cfg.n_layers,
-            "encoder_layers": cfg.encoder_layers, "batch": TRAIN_BATCH,
-            **shapes, "init_s": init_s,
-            **_step_stats(cfg, shape_seq, TRAIN_BATCH, tokens, history),
-            "max_memory_allocated": peak, "trace": trace}
+        shape_seq, tokens = seq, TRAIN_BATCH * seq
+        shapes = {"seq": seq, "vision_tokens": cfg.vision_tokens}
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "encoder_layers": cfg.encoder_layers, "batch": TRAIN_BATCH,
+           **shapes, "init_s": init_s,
+           **_step_stats(cfg, shape_seq, TRAIN_BATCH, tokens, history),
+           "max_memory_allocated": peak, "trace": trace}
+    if blocks:
+        out["block_ms"] = blocks
+    require(all(math.isfinite(m) for m in (trace["loss"],
+                                           trace["grad_norm"])),
+            f"{cfg.name}: the traced step is not finite: {trace}")
+    return out
 
 
 def family_parity_phase() -> dict:
     """Each family at full width, cut to the least depth its structure
-    allows, one seed, PARITY_BATCH rows: loss and gradient global norm on
-    the card against the port on the CPU (bf16 both); for the MoE also
-    the share of top-k choices the two agree on."""
+    allows, one seed, PARITY_BATCH rows (of SSM_PARITY_SEQ tokens for the
+    SSM and hybrid families, one whole chunk): loss and gradient global
+    norm on the card against the port on the CPU (bf16 both); for the MoE
+    also the share of top-k choices the two agree on."""
     import torch
     from repro_torch.configs.base import get_arch
     from repro_torch.models import params as P
@@ -1695,7 +1750,9 @@ def family_parity_phase() -> dict:
         tree = P.init_params(build_model(cfg, device="meta").param_defs(),
                              torch.Generator().manual_seed(SEED_FLOAT),
                              cfg.dtype, "cpu")
-        batch = family_batch(cfg, PARITY_BATCH, 0, "cpu")
+        seq = (SSM_PARITY_SEQ if cfg.family in ("hybrid", "ssm")
+               else TRAIN_SEQ)
+        batch = family_batch(cfg, PARITY_BATCH, 0, "cpu", seq)
         res, routes = {}, {}
         for dev in ("cuda", "cpu"):
             model = P.from_reference(build_model(cfg, device=dev), tree)
@@ -1717,7 +1774,7 @@ def family_parity_phase() -> dict:
         rel_gnorm = abs(res["cuda"]["grad_norm"]
                         - res["cpu"]["grad_norm"]) / abs(res["cpu"]["grad_norm"])
         row = {"arch": arch, "cut": cut, "params": n_params(cfg),
-               "batch": PARITY_BATCH, "seed": SEED_FLOAT, **res,
+               "batch": PARITY_BATCH, "seq": seq, "seed": SEED_FLOAT, **res,
                "rel_loss": rel_loss, "rel_grad_norm": rel_gnorm}
         if cfg.n_experts:
             require(len(routes["cuda"]) == len(routes["cpu"]) > 0,
@@ -1763,6 +1820,157 @@ def moe_determinism_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+def train_hybrid_phase(train, work: Path):
+    """zamba2-7b at full width, cut to HYBRID_LAYERS layers, through the
+    CLI at TRAIN_BATCH x SSM_TRAIN_SEQ with profile and checkpoint, then
+    one traced step of the same Trainer; returns the profile and the
+    checkpoint too, for ``train_profile_phase`` and ``resume_phase``."""
+    import torch
+    from repro_torch.configs.base import get_arch, load_all, register_arch
+    from repro_torch.kernels import _build
+    load_all()  # the published configs first: a filled registry loads none
+    cfg = register_arch(get_arch(HYBRID_ARCH).replace(
+        name=HYBRID_CUT, n_layers=HYBRID_LAYERS))
+    prof, ckpt = work / "hybrid_prof", work / "hybrid_ckpt"
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.reset()
+    tr, opt, _, wall = run_train(train, [
+        "--arch", HYBRID_CUT, "--steps", str(TRAIN_STEPS),
+        "--batch", str(TRAIN_BATCH), "--seq", str(SSM_TRAIN_SEQ),
+        "--profile-dir", str(prof), "--ckpt-dir", str(ckpt),
+        "--ckpt-every", str(TRAIN_STEPS), "--device", "cuda"])
+    peak_cli = torch.cuda.max_memory_allocated()
+    history = list(tr.history)
+    median = statistics.median(h["step_time"] for h in history[1:])
+    tr.profiler = tr.ckpt = None  # the CLI wrote its profile, checkpoint
+    trace = profiled_step(lambda: tr.run(opt, start_step=TRAIN_STEPS,
+                                         steps=1), median)
+    trace.update(loss=tr.history[-1]["loss"],
+                 grad_norm=tr.history[-1]["grad_norm"])
+    launches = _build.launch_counts.snapshot()
+    groups = tr.model.groups
+    del tr, opt
+    free_card()
+    out = {"arch": HYBRID_ARCH, "layers": f"{HYBRID_LAYERS} of 81",
+           "groups": groups, "batch": TRAIN_BATCH, "seq": SSM_TRAIN_SEQ,
+           "ssm_chunk": cfg.ssm_chunk, "wall_s": wall,
+           **_step_stats(cfg, SSM_TRAIN_SEQ, TRAIN_BATCH,
+                         TRAIN_BATCH * SSM_TRAIN_SEQ, history),
+           "max_memory_allocated": peak_cli, "trace": trace,
+           "checkpoint_bytes": sum(f.stat().st_size
+                                   for f in ckpt.rglob("*") if f.is_file()),
+           "launches": launches}
+    require(math.isfinite(trace["loss"]) and math.isfinite(
+        trace["grad_norm"]), f"the traced hybrid step is not finite: {out}")
+    require((prof / "worker0.rprf").is_file(), "train_hybrid wrote no profile")
+    return out, prof / "worker0.rprf", ckpt
+
+
+def _fwd_bwd_ms(fn, x, reps: int = 3) -> float:
+    """Median wall ms of ``fn(x)``'s forward and backward, each timed to a
+    synchronise after one warm-up."""
+    import torch
+    times = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _ = fn(x)
+        y.float().square().mean().backward()
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def xlstm_block_ms(model, seq: int) -> dict:
+    """One mLSTM and one sLSTM block of ``model`` alone, forward and
+    backward on a seeded TRAIN_BATCH x ``seq`` input: where the step's
+    time goes, block by block."""
+    import torch
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(SEED_FLOAT)
+    x = torch.randn((TRAIN_BATCH, seq, cfg.d_model), generator=gen,
+                    device="cuda").to(model.embed.dtype).requires_grad_()
+    out = {}
+    for name, blocks in (("mlstm", model.mlstm), ("slstm", model.slstm)):
+        ms = _fwd_bwd_ms(blocks[0], x)
+        out[name] = {"ms": ms, "blocks": len(blocks),
+                     "ms_all_blocks": ms * len(blocks)}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def _scan_inputs(B: int, S: int, H: int, P: int, N: int, Hk: int, gen):
+    """Seeded scan inputs on the card, f32: log-decays ``-softplus`` of
+    standard normals, as Mamba2's and the mLSTM's are at initialisation
+    (~-0.69, so a chunk of 256 would overflow an unmasked decay matrix);
+    keys over sqrt(N) in the per-head form, as the mLSTM scales them."""
+    import torch
+    import torch.nn.functional as F
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    k = r(B, S, Hk, N)
+    return (-F.softplus(r(B, S, H)), r(B, S, H, P),
+            k if Hk == 1 else k / math.sqrt(N), r(B, S, Hk, N),
+            torch.zeros((B, H, P, N), device="cuda"))
+
+
+def ssm_scan_phase() -> dict:
+    """``linear_rnn_chunked`` alone at each family's full shape (batch
+    TRAIN_BATCH x SSM_TRAIN_SEQ): the forward and the gradients of a
+    seeded linear functional at chunk 256 against chunk 64, each tensor
+    within SSM_SCAN_TOL of its largest, every gradient finite; the peak
+    memory of one forward + backward at 256 and its call and device ms."""
+    import torch
+    from repro_torch.models.ssm import linear_rnn_chunked
+    out = {"batch": TRAIN_BATCH, "seq": SSM_TRAIN_SEQ,
+           "chunks": list(SSM_SCAN_CHUNKS), "tol_of_largest": SSM_SCAN_TOL}
+    for name, shape in SSM_SCAN_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(SEED_FLOAT)
+        ins = _scan_inputs(TRAIN_BATCH, SSM_TRAIN_SEQ, **shape, gen=gen)
+        y0, _ = linear_rnn_chunked(*ins, chunk=SSM_SCAN_CHUNKS[0])
+        cot = (torch.randn(y0.shape, generator=gen, device="cuda"),
+               torch.randn(ins[-1].shape, generator=gen, device="cuda"))
+        del y0
+
+        def fwd_bwd(chunk):
+            ts = [t.clone().requires_grad_() for t in ins[:4]]
+            y, h = linear_rnn_chunked(*ts, ins[4], chunk=chunk)
+            ((y * cot[0]).sum() + (h * cot[1]).sum()).backward()
+            return [y.detach(), h.detach()] + [t.grad for t in ts]
+
+        free_card()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = fwd_bwd(SSM_SCAN_CHUNKS[0])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        want = fwd_bwd(SSM_SCAN_CHUNKS[1])
+        names = ["y", "h_out", "d_log_a", "d_v", "d_k", "d_q"]
+        rows = {}
+        for n, a, b in zip(names, got, want):
+            largest = float(b.abs().max())
+            rows[n] = {"finite": bool(torch.isfinite(a).all()),
+                       "max_abs_diff": float((a - b).abs().max()),
+                       "largest": largest}
+            rows[n]["ok"] = rows[n]["finite"] and (
+                rows[n]["max_abs_diff"] <= SSM_SCAN_TOL * largest)
+        del got, want
+        out[name] = {**shape, "agree": rows, "peak_bytes_fwd_bwd": peak,
+                     "call_ms_fwd_bwd": time_ms(
+                         lambda: fwd_bwd(SSM_SCAN_CHUNKS[0]), iters=5),
+                     "device_ms_fwd_bwd": device_ms(
+                         lambda: fwd_bwd(SSM_SCAN_CHUNKS[0]), iters=5)}
+        del ins, cot
+        free_card()
+        require(all(r["ok"] for r in rows.values()),
+                f"ssm_scan {name}: chunk 256 and 64 disagree: {out[name]}")
+    return out
+
+
 def train_profile_phase(analyze, rprf: Path, work: Path,
                         db: str = "train_db") -> dict:
     """The port's analyze on the card over a train profile."""
@@ -1789,10 +1997,11 @@ def train_profile_phase(analyze, rprf: Path, work: Path,
     return out
 
 
-def resume_phase(train, ckpt: Path, arch: str = ARCH) -> dict:
+def resume_phase(train, ckpt: Path, arch: str = ARCH,
+                 seq: int = TRAIN_SEQ) -> dict:
     tr, _, stdout, wall = run_train(train, [
         "--arch", arch, "--steps", "1", "--batch", str(TRAIN_BATCH),
-        "--seq", str(TRAIN_SEQ), "--ckpt-dir", str(ckpt), "--resume",
+        "--seq", str(seq), "--ckpt-dir", str(ckpt), "--resume",
         "--device", "cuda"])
     history = tr.history
     del tr
@@ -1800,7 +2009,9 @@ def resume_phase(train, ckpt: Path, arch: str = ARCH) -> dict:
     out = {"wall_s": wall, "history": history,
            "resumed": f"resumed from step {TRAIN_STEPS}" in stdout}
     require(out["resumed"] and [h["step"] for h in history] == [TRAIN_STEPS]
-            and math.isfinite(history[0]["loss"]), f"resume failed: {out}")
+            and math.isfinite(history[0]["loss"])
+            and math.isfinite(history[0]["grad_norm"]),
+            f"resume failed: {out}")
     return out
 
 
@@ -1899,7 +2110,9 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     build_s = _build.build_all()
     emit({"gpu": gpu, "build": {"seconds": build_s,
-                                "dir": str(_build.build_dir())}})
+                                "dir": str(_build.build_dir())},
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "opt_einsum": torch.backends.opt_einsum.is_available()})
 
     (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="smoke.", dir=ROOT / "build"))
@@ -2150,6 +2363,21 @@ def main() -> int:
                                                 FAMILY_STEPS)})
         emit({"family_parity": family_parity_phase()})
         emit({"moe_determinism": moe_determinism_phase()})
+
+        # -- the SSM and hybrid families at full width, the published chunk
+        hyb_out, hyb_rprf, hyb_ckpt = train_hybrid_phase(train, work)
+        hyb_out["resume"] = resume_phase(train, hyb_ckpt, HYBRID_CUT,
+                                         SSM_TRAIN_SEQ)
+        # the resumed step is the traced step again, from the checkpoint
+        hyb_out["resume"]["same_loss_as_traced_step"] = (
+            hyb_out["resume"]["history"][0]["loss"] == hyb_out["trace"]["loss"])
+        shutil.rmtree(hyb_ckpt)  # ~14.5 GB of disk
+        emit({"train_hybrid": hyb_out})
+        emit({"train_hybrid_profile": train_profile_phase(
+            analyze, hyb_rprf, work, "hybrid_db")})
+        emit({"train_xlstm": train_family_phase(
+            get_arch(XLSTM_ARCH), FAMILY_STEPS, SSM_TRAIN_SEQ)})
+        emit({"ssm_scan": ssm_scan_phase()})
         for e in entries:  # the launches of the ingest phase's float twin
             key = next(k for k in (*INGEST_KERNELS, "scatter_add",
                                    "int8_quant") if e["name"].startswith(k))

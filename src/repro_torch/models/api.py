@@ -9,23 +9,32 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import params as P
-from repro_torch.models.lm import _NOT_PORTED, TransformerLM
+from repro_torch.models.lm import TransformerLM
+from repro_torch.models.ssm import MambaLM, XLSTMLM
 from repro_torch.models.whisper import WhisperModel
+
+
+def model_class(cfg: ModelConfig) -> type:
+    """The class that holds ``cfg``'s family, dispatched as the reference's
+    ``build_model``: a hybrid, or an SSM with ``ssm_state``, is a
+    :class:`MambaLM`; another SSM an :class:`XLSTMLM`."""
+    if cfg.family in ("dense", "moe", "vlm"):
+        return TransformerLM
+    if cfg.family == "audio":
+        return WhisperModel
+    if cfg.family == "hybrid" or (cfg.family == "ssm" and cfg.ssm_state):
+        return MambaLM
+    if cfg.family == "ssm":
+        return XLSTMLM
+    raise ValueError(cfg.family)
 
 
 def build_model(cfg: ModelConfig, *, device="cpu", dtype=None):
     """The model for ``cfg``, its parameters allocated uninitialised on
-    ``device`` (``device="meta"`` allocates nothing).  The dense, MoE, VLM
-    and audio families are ported; the SSM and hybrid families raise
+    ``device`` (``device="meta"`` allocates nothing).  Every family is
+    ported in train mode; serving (``prefill``, ``decode_step``) raises
     ``NotImplementedError``."""
-    if cfg.family in ("dense", "moe", "vlm"):
-        return TransformerLM(cfg, device=device, dtype=dtype)
-    if cfg.family == "audio":
-        return WhisperModel(cfg, device=device, dtype=dtype)
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(f"{cfg.family} family: " + _NOT_PORTED.format(
-            "the SSM and hybrid families, models/ssm.py"))
-    raise ValueError(cfg.family)
+    return model_class(cfg)(cfg, device=device, dtype=dtype)
 
 
 def n_params(cfg: ModelConfig) -> int:

@@ -158,3 +158,14 @@ def chunked_softmax_xent(x, w_out, labels, mask=None, chunk: int = 512
         tot = tot + ((logz - gold) * mc).sum()
         cnt = cnt + mc.sum()
     return tot / torch.clamp_min(cnt, 1.0)
+
+
+def next_token_xent(x, w_out, tokens) -> torch.Tensor:
+    """Mean cross-entropy of each next token of ``tokens`` (B, S) from the
+    final hidden states ``x``: the labels are ``tokens`` rolled by one and
+    the last position is masked, as the reference's models do."""
+    B, S = tokens.shape
+    mask = torch.ones((B, S), device=tokens.device)
+    mask[:, -1] = 0.0
+    return chunked_softmax_xent(x, w_out, torch.roll(tokens, -1, dims=1),
+                                mask)

@@ -24,11 +24,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (chunked_softmax_xent, flash_attention,
-                                       glu_mlp, rms_norm, rope)
+from repro_torch.models.layers import (flash_attention, glu_mlp,
+                                       next_token_xent, rms_norm, rope)
 from repro_torch.models.params import ParamDef, torch_dtype
 
-_NOT_PORTED = "not ported yet ({}: ROADMAP.md §1)"
+_SERVING = "not ported yet (serving: ROADMAP.md §1 item 5)"
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -136,8 +136,11 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device="cpu", dtype=None):
         super().__init__()
         if cfg.family not in ("dense", "moe", "vlm"):
-            raise NotImplementedError(
-                f"{cfg.family} family: " + _NOT_PORTED.format("other model families"))
+            from repro_torch.models.api import model_class
+            raise ValueError(
+                f"{cfg.family} family: TransformerLM holds the dense, MoE "
+                f"and VLM families; {model_class(cfg).__name__} holds this "
+                f"one (models.api.build_model)")
         if cfg.family == "vlm" and cfg.n_layers % cfg.cross_attn_every:
             raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
                              f"cross_attn_every {cfg.cross_attn_every}")
@@ -232,7 +235,7 @@ class TransformerLM(nn.Module):
         """Mean next-token cross-entropy of ``tokens`` (B, S), plus the MoE
         load-balancing term; the VLM attends to ``vision_embed`` (B, T, D)."""
         cfg = self.cfg
-        B, S = tokens.shape
+        S = tokens.shape[1]
         x = self._embed_in(tokens)
         positions = torch.arange(S, device=tokens.device)[None, :]
         aux: list[torch.Tensor] = []
@@ -246,10 +249,7 @@ class TransformerLM(nn.Module):
         else:
             x = self._blocks(0, cfg.n_layers, x, positions, aux)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        labels = torch.roll(tokens, -1, dims=1)
-        mask = torch.ones((B, S), device=tokens.device)
-        mask[:, -1] = 0.0
-        loss = chunked_softmax_xent(x, self._head(), labels, mask)
+        loss = next_token_xent(x, self._head(), tokens)
         if aux:  # the reference adds 0.01 * aux / n_layers, 0 without MoE
             loss = loss + 0.01 * sum(aux) / max(cfg.n_layers, 1)
         return loss
@@ -259,7 +259,7 @@ class TransformerLM(nn.Module):
         return self(batch["tokens"], vision)
 
     def prefill(self, *args, **kwargs):
-        raise NotImplementedError("prefill: " + _NOT_PORTED.format("serving"))
+        raise NotImplementedError("prefill: " + _SERVING)
 
     def decode_step(self, *args, **kwargs):
-        raise NotImplementedError("decode_step: " + _NOT_PORTED.format("serving"))
+        raise NotImplementedError("decode_step: " + _SERVING)

@@ -3,9 +3,10 @@
 Port of :mod:`repro.models.params`.  Models declare their parameters as a
 nested dict of :class:`ParamDef` in the reference's layout: each layer
 stack is one ``(L, ...)`` array per name under its group (:data:`STACKED`:
-``layers``, the VLM's ``cross``, whisper's ``enc`` and ``dec``).  The
-port's modules hold one parameter per layer instead
-(``<group>.<i>.<name>``), so this module also converts between the two:
+``layers``, the VLM's ``cross``, whisper's ``enc`` and ``dec``, xLSTM's
+``mlstm`` and ``slstm``).  The port's modules hold one parameter per layer
+instead (``<group>.<i>.<name>``), so this module also converts between the
+two:
 
 * :func:`unstack` / :func:`stack` — a reference tree and a flat dict keyed
   by module parameter name;
@@ -88,7 +89,7 @@ def torch_dtype(dtype) -> torch.dtype:
 
 
 # the reference's stacked groups: one (L, ...) array per name, scanned
-STACKED = frozenset({"layers", "cross", "enc", "dec"})
+STACKED = frozenset({"layers", "cross", "enc", "dec", "mlstm", "slstm"})
 
 
 def _tensor(a) -> torch.Tensor:

@@ -1,0 +1,456 @@
+"""SSM-family models: Mamba2 (SSD), xLSTM (mLSTM + sLSTM), the Zamba2 hybrid.
+
+Port of :mod:`repro.models.ssm`, train mode.  Every recurrence shares one
+chunked linear-RNN core (the SSD duality): state
+``H_t = a_t * H_{t-1} + v_t (x) k_t``, readout ``y_t = H_t . q_t``,
+computed chunk-parallel: quadratic attention-like products inside a chunk,
+the state carried from chunk to chunk by a Python loop (the reference's
+``lax.scan``), each chunk's body under ``torch.utils.checkpoint``
+(non-reentrant) as the reference's ``jax.checkpoint``.  The sLSTM is a
+sequential loop over time on an f32 carry.
+
+Two rules of :func:`linear_rnn_chunked` differ from a literal transcription:
+
+* **The decay matrix is masked before its exponential.**  Above the
+  diagonal ``cum[j] - cum[i]`` is positive and grows with the chunk: at
+  initialisation (log-decay ~ -0.69) it passes f32's ``exp`` range, 88.7,
+  once a chunk is longer than ~128 steps.  The reference takes ``exp`` of
+  the whole matrix and masks after, so its forward keeps the 0 that
+  ``where`` selects but its backward multiplies that zero cotangent by
+  ``inf``: NaN, in every parameter upstream, at the published chunk of 256.
+  Here the masked entries are ``-inf`` before ``exp``, which gives exactly
+  0: the forward values are the reference's and the gradient is the true
+  one.
+* **No product of more than two operands.**  The decay vectors (``eg``,
+  ``rem``) are folded into one operand first, then one batched product
+  runs, so nothing depends on ``torch.backends.opt_einsum`` choosing a
+  contraction order (left to right, ``"bihp,bin,bih->bhpn"`` would build
+  a (b, i, h, p, n) intermediate: 3.76 GB per chunk at zamba2's width).
+
+The blocks keep the reference's ``state=None`` argument and
+``(x, new_state)`` result; ``prefill``, ``decode_step`` and ``cache_defs``
+(serving) are not ported yet.  Parameter names and shapes are the
+reference's: ``layers.<i>.<name>``, ``mlstm.<i>.<name>`` and
+``slstm.<i>.<name>`` are its stacked groups (``models.params``), and the
+hybrid's ``shared_attn`` is the port's :class:`~repro_torch.models.lm.Block`
+on the same config, one parameter set applied before every group.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import next_token_xent, rms_norm
+from repro_torch.models.lm import _SERVING, Block, _param, _params
+from repro_torch.models.params import ParamDef, torch_dtype
+
+
+# ---------------------------------------------------------------------------
+# the chunked linear-RNN core (Mamba2 SSD form / gated linear attention)
+# ---------------------------------------------------------------------------
+
+def _chunk(h, lac, vc, kc, qc):
+    """One chunk: ``h`` (B, H, P, N) entering state; ``lac`` (B, c, H),
+    ``vc`` (B, c, H, P), ``kc``/``qc`` (B, c, Hk, N), all f32.  Returns
+    the leaving state and the chunk's ``y`` (B, c, H, P)."""
+    c = lac.shape[1]
+    cum = torch.cumsum(lac, dim=1)                               # (B,c,H)
+    # (B, H, j, i) decay matrix with causal mask i <= j, masked before exp
+    dj = cum.transpose(1, 2)                                     # (B,H,c)
+    dmat = dj[:, :, :, None] - dj[:, :, None, :]                 # (B,H,j,i)
+    mask = torch.ones((c, c), dtype=torch.bool, device=lac.device).tril()
+    w = torch.exp(dmat.masked_fill(~mask, float("-inf")))
+    tot = cum[:, -1, :]                                          # (B,H)
+    eg = torch.exp(cum)[..., None]                               # (B,c,H,1)
+    rem = torch.exp(tot[:, None, :] - cum)[..., None]            # (B,c,H,1)
+    vr = vc * rem
+    if kc.shape[2] == 1:  # Mamba2: B/C shared across heads
+        ks = kc[:, :, 0]                                         # (B,c,N)
+        A = torch.einsum("bjn,bin->bji", qc[:, :, 0], ks)[:, None] * w
+        h_upd = torch.einsum("bihp,bin->bhpn", vr, ks)
+    else:                 # mLSTM: per head
+        A = torch.einsum("bjhn,bihn->bhji", qc, kc) * w
+        h_upd = torch.einsum("bihp,bihn->bhpn", vr, kc)
+    y_inter = torch.einsum("bjhn,bhpn->bjhp", qc * eg, h)
+    y_intra = torch.einsum("bhji,bihp->bjhp", A, vc)
+    h_new = h * torch.exp(tot)[:, :, None, None] + h_upd
+    return h_new, y_intra + y_inter
+
+
+def linear_rnn_chunked(log_a, v, k, q, h0, *, chunk: int):
+    """Chunk-parallel linear RNN.
+
+    log_a (B, S, H) f32 per-head log decay (<= 0); v (B, S, H, P) values;
+    k/q (B, S, Hk, N) with Hk in {1, H}; h0 (B, H, P, N) entering state.
+    Returns ``(y (B, S, H, P) f32, h_out (B, H, P, N) f32)``.  A ragged
+    tail is padded with zero log-decay and zero inputs, which leave the
+    state unchanged.
+    """
+    B, S, H, P = v.shape
+    c = min(chunk, S)
+    nc = -(-S // c)
+    pad = nc * c - S
+    if pad:
+        log_a = F.pad(log_a, (0, 0, 0, pad))
+        v, k, q = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (v, k, q))
+    h = h0.float()
+    ys = []
+    # checkpoint per chunk: autograd would otherwise keep the (B, H, c, c)
+    # decay and attention matrices of every chunk; with it only the chunk
+    # inputs and the (B, H, P, N) entering states are saved.  ``split``'s
+    # backward is one concatenation (a slice's would fill a whole-sequence
+    # gradient for every chunk).
+    for chunk_in in zip(*(t.float().split(c, dim=1) for t in (log_a, v, k,
+                                                              q))):
+        h, y = checkpoint(_chunk, h, *chunk_in, use_reentrant=False,
+                          preserve_rng_state=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block
+# ---------------------------------------------------------------------------
+
+def mamba2_defs(cfg: ModelConfig, L: int) -> dict:
+    D, DI, N, H, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                      cfg.n_ssm_heads, cfg.ssm_conv)
+    proj_out = 2 * DI + 2 * N + H
+    return {
+        "ln": ParamDef((L, D), ("layers", None), "zeros"),
+        "in_proj": ParamDef((L, D, proj_out), ("layers", "fsdp", "ssm_inner")),
+        "conv_w": ParamDef((L, K, DI), ("layers", "conv_k", "ssm_inner")),
+        "conv_b": ParamDef((L, DI), ("layers", "ssm_inner"), "zeros"),
+        "A_log": ParamDef((L, H), ("layers", None), "zeros"),
+        "D_skip": ParamDef((L, H), ("layers", None), "ones"),
+        "dt_bias": ParamDef((L, H), ("layers", None), "zeros"),
+        "norm": ParamDef((L, DI), ("layers", "ssm_inner"), "zeros"),
+        "out_proj": ParamDef((L, DI, D), ("layers", "ssm_inner", "fsdp")),
+    }
+
+
+def _causal_conv(x, w, b, state=None):
+    """Depthwise causal conv; x (B, S, DI), w (K, DI): the K shifted
+    products summed left to right in x's dtype.  ``state`` is the last K-1
+    inputs for decode; returns ``(y, new_state)``."""
+    K = w.shape[0]
+    S = x.shape[1]
+    if state is None:
+        xp = F.pad(x, (0, 0, K - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = xp[:, :S] * w[0]
+    for i in range(1, K):
+        y = y + xp[:, i:i + S] * w[i]
+    new_state = xp[:, -(K - 1):] if K > 1 else None
+    return y + b, new_state
+
+
+def mamba2_block(p, x, cfg: ModelConfig, state=None):
+    """Returns ``(x + out, new_state)``; ``p`` maps the block's parameter
+    names to tensors.  state = ``{"h": (B, H, P, N), "conv": (B, K-1,
+    DI)}``."""
+    B, S, D = x.shape
+    DI, N, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    P = DI // H
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    z, xs, Bv, Cv, dt = torch.split(h @ p["in_proj"], [DI, DI, N, N, H],
+                                    dim=-1)
+    conv_state = None if state is None else state["conv"]
+    xs, new_conv = _causal_conv(xs, p["conv_w"], p["conv_b"], conv_state)
+    xs = F.silu(xs)
+    Bv = F.silu(Bv).float()
+    Cv = F.silu(Cv).float()
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    log_a = -torch.exp(p["A_log"].float()) * dt                  # (B,S,H)
+    xh = xs.reshape(B, S, H, P).float()
+    v = xh * dt[..., None]
+    k = Bv[:, :, None, :]                                        # (B,S,1,N)
+    q = Cv[:, :, None, :]
+    h0 = (torch.zeros((B, H, P, N), device=x.device) if state is None
+          else state["h"].float())
+    y, h_out = linear_rnn_chunked(log_a, v, k, q, h0, chunk=cfg.ssm_chunk)
+    y = y + p["D_skip"].float()[None, None, :, None] * xh
+    y = y.reshape(B, S, DI).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    new_state = None
+    if state is not None:
+        new_state = {"h": h_out, "conv": new_conv.to(state["conv"].dtype)}
+    return x + out, new_state
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks
+# ---------------------------------------------------------------------------
+
+def mlstm_defs(cfg: ModelConfig, L: int) -> dict:
+    D, DI, H = cfg.d_model, cfg.d_inner, cfg.n_heads
+    return {
+        "ln": ParamDef((L, D), ("layers", None), "zeros"),
+        "up": ParamDef((L, D, 2 * DI), ("layers", "fsdp", "ssm_inner")),
+        "wq": ParamDef((L, DI, DI), ("layers", None, "ssm_inner")),
+        "wk": ParamDef((L, DI, DI), ("layers", None, "ssm_inner")),
+        "wv": ParamDef((L, DI, DI), ("layers", None, "ssm_inner")),
+        "w_if": ParamDef((L, DI, 2 * H), ("layers", "ssm_inner", None)),
+        "norm": ParamDef((L, DI), ("layers", "ssm_inner"), "zeros"),
+        "down": ParamDef((L, DI, D), ("layers", "ssm_inner", "fsdp")),
+    }
+
+
+def mlstm_block(p, x, cfg: ModelConfig, state=None):
+    """mLSTM: matrix memory + normalizer, which rides along as value
+    channel N + 1.  state = ``{"h": (B, H, N + 1, N)}``."""
+    B, S, D = x.shape
+    DI, H = cfg.d_inner, cfg.n_heads
+    N = DI // H
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    xi, z = torch.chunk(h @ p["up"], 2, dim=-1)
+    q = (xi @ p["wq"]).reshape(B, S, H, N)
+    k = (xi @ p["wk"]).reshape(B, S, H, N) / math.sqrt(N)
+    v = (xi @ p["wv"]).reshape(B, S, H, N)
+    gates = (xi @ p["w_if"]).float()
+    i_g = torch.sigmoid(gates[..., :H])                          # (B,S,H)
+    log_f = F.logsigmoid(gates[..., H:])
+    # fold normalizer: value channel N+1 carries the input gate itself
+    v_aug = torch.cat([v.float() * i_g[..., None], i_g[..., None]], dim=-1)
+    h0 = (torch.zeros((B, H, N + 1, N), device=x.device) if state is None
+          else state["h"].float())
+    y_aug, h_out = linear_rnn_chunked(log_f, v_aug, k, q, h0,
+                                      chunk=cfg.ssm_chunk)
+    denom = torch.maximum(y_aug[..., N].abs(),
+                          torch.ones((), device=x.device))[..., None]
+    y = (y_aug[..., :N] / denom).reshape(B, S, DI).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    out = y @ p["down"]
+    new_state = None if state is None else {"h": h_out}
+    return x + out, new_state
+
+
+def slstm_defs(cfg: ModelConfig, L: int) -> dict:
+    D, H = cfg.d_model, cfg.n_heads
+    hd = D // H
+    return {
+        "ln": ParamDef((L, D), ("layers", None), "zeros"),
+        "w_gates": ParamDef((L, D, 4 * D), ("layers", "fsdp", "ssm_inner")),
+        "r_gates": ParamDef((L, H, hd, 4 * hd), ("layers", None, None, None)),
+        "out": ParamDef((L, D, D), ("layers", "ssm_inner", "fsdp")),
+    }
+
+
+def slstm_block(p, x, cfg: ModelConfig, state=None):
+    """sLSTM: per-head scalar memory with recurrent gate contributions, a
+    sequential loop over time on the f32 carry ``(c, n, hp)``, ``n``
+    starting at 1.  state = ``{"c", "n", "hp"}``, each (B, H, hd)."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    hd = D // H
+    h_in = rms_norm(x, p["ln"], cfg.norm_eps)
+    pre = (h_in @ p["w_gates"]).reshape(B, S, H, 4 * hd).float()
+    if state is None:
+        c = torch.zeros((B, H, hd), device=x.device)
+        n = torch.ones((B, H, hd), device=x.device)
+        hp = torch.zeros((B, H, hd), device=x.device)
+    else:
+        c, n, hp = (state[k].float() for k in ("c", "n", "hp"))
+    R = p["r_gates"].float()
+    one = torch.ones((), device=x.device)
+    ys = []
+    # ``unbind``'s backward is one stack; indexing ``pre[:, t]`` would fill
+    # and add a whole (B, S, H, 4hd) gradient at every step
+    for pre_t in pre.unbind(1):
+        g = pre_t + torch.einsum("bhd,hdk->bhk", hp, R)         # (B,H,4hd)
+        i_g, f_g, z_g, o_g = torch.chunk(g, 4, dim=-1)
+        i_g = torch.sigmoid(i_g)
+        f_g = torch.sigmoid(f_g)
+        c = f_g * c + i_g * torch.tanh(z_g)
+        n = f_g * n + i_g
+        hp = torch.sigmoid(o_g) * c / torch.maximum(n, one)
+        ys.append(hp)
+    y = torch.stack(ys, dim=1).reshape(B, S, D).to(x.dtype)
+    out = y @ p["out"]
+    new_state = None if state is None else {"c": c, "n": n, "hp": hp}
+    return x + out, new_state
+
+
+# ---------------------------------------------------------------------------
+# the blocks as modules, and the models
+# ---------------------------------------------------------------------------
+
+class _SSMBlock(nn.Module):
+    """One layer of a stacked group: its parameters are the reference's
+    ``defs`` names with the layer axis dropped; ``forward(x, state=None)``
+    is the block function's ``(x, new_state)``."""
+
+    def __init__(self, cfg: ModelConfig, defs, fn, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        self._fn = fn
+        _params(self, [(n, d.shape[1:]) for n, d in defs(cfg, 1).items()],
+                device, dtype)
+
+    def forward(self, x: torch.Tensor, state=None):
+        return self._fn(dict(self.named_parameters(recurse=False)), x,
+                        self.cfg, state)
+
+
+class Mamba2Block(_SSMBlock):
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__(cfg, mamba2_defs, mamba2_block, device, dtype)
+
+
+class MLSTMBlock(_SSMBlock):
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__(cfg, mlstm_defs, mlstm_block, device, dtype)
+
+
+class SLSTMBlock(_SSMBlock):
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__(cfg, slstm_defs, slstm_block, device, dtype)
+
+
+class _RecurrentLM(nn.Module):
+    """What the two SSM models share: the embedding, the final norm, the
+    untied head, the loss and the serving entry points that raise.
+    Parameters are allocated uninitialised on ``device`` in ``dtype``
+    (default ``cfg.dtype``), as :class:`~repro_torch.models.lm.
+    TransformerLM`'s are."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        self._dtype = torch_dtype(cfg.dtype if dtype is None else dtype)
+        D, V = cfg.d_model, cfg.vocab_size
+        self.embed = _param((V, D), device, self._dtype)
+        self.final_norm = _param((D,), device, self._dtype)
+        self.lm_head = _param((D, V), device, self._dtype)
+
+    def _head_defs(self) -> dict:
+        D, V = self.cfg.d_model, self.cfg.vocab_size
+        return {"embed": ParamDef((V, D), ("vocab", "fsdp"), "embed"),
+                "final_norm": ParamDef((D,), (None,), "zeros"),
+                "lm_head": ParamDef((D, V), ("fsdp", "vocab"))}
+
+    def _remat(self, blk: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """``blk(x)``'s output, checkpointed when ``cfg.remat``."""
+        if self.cfg.remat:
+            x, _ = checkpoint(blk, x, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, _ = blk(x)
+        return x
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``tokens`` (B, S)."""
+        cfg = self.cfg
+        x = self.embed[tokens.long()].to(torch_dtype(cfg.dtype))
+        x = rms_norm(self._backbone(x), self.final_norm, cfg.norm_eps)
+        return next_token_xent(x, self.lm_head, tokens)
+
+    def loss_fn(self, batch: dict) -> torch.Tensor:
+        return self(batch["tokens"])
+
+    def prefill(self, *args, **kwargs):
+        raise NotImplementedError("prefill: " + _SERVING)
+
+    def decode_step(self, *args, **kwargs):
+        raise NotImplementedError("decode_step: " + _SERVING)
+
+    def cache_defs(self, *args, **kwargs):
+        raise NotImplementedError("cache_defs: " + _SERVING)
+
+
+class MambaLM(_RecurrentLM):
+    """Mamba2 LM; with ``cfg.attn_every`` > 0 it is the Zamba2 hybrid: one
+    *shared* attention+MLP block (a single parameter set, ``shared_attn``)
+    applied before every group of ``attn_every`` Mamba2 layers, the last
+    group partial when ``attn_every`` does not divide ``n_layers``.
+    ``cfg.remat`` checkpoints each Mamba2 layer, never the shared block."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cpu", dtype=None):
+        super().__init__(cfg, device, dtype)
+        self.groups = []
+        step = cfg.attn_every or cfg.n_layers
+        lo = 0
+        while lo < cfg.n_layers:
+            self.groups.append((lo, min(lo + step, cfg.n_layers)))
+            lo += step
+        self.layers = nn.ModuleList(Mamba2Block(cfg, device, self._dtype)
+                                    for _ in range(cfg.n_layers))
+        if cfg.attn_every:
+            self.shared_attn = Block(cfg, device, self._dtype)
+
+    @property
+    def n_attn_apps(self) -> int:
+        return len(self.groups) if self.cfg.attn_every else 0
+
+    def param_defs(self) -> dict:
+        """The reference's ParamDef tree."""
+        cfg = self.cfg
+        defs = {**self._head_defs(), "layers": mamba2_defs(cfg, cfg.n_layers)}
+        if cfg.attn_every:
+            D, H, KVH, hd, F_ = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.hd, cfg.d_ff)
+            defs["shared_attn"] = {
+                "ln_attn": ParamDef((D,), (None,), "zeros"),
+                "wq": ParamDef((D, H * hd), ("fsdp", "heads")),
+                "wk": ParamDef((D, KVH * hd), ("fsdp", "kv_heads")),
+                "wv": ParamDef((D, KVH * hd), ("fsdp", "kv_heads")),
+                "wo": ParamDef((H * hd, D), ("heads", "fsdp")),
+                "ln_mlp": ParamDef((D,), (None,), "zeros"),
+                "w_gate": ParamDef((D, F_), ("fsdp", "ff")),
+                "w_up": ParamDef((D, F_), ("fsdp", "ff")),
+                "w_down": ParamDef((F_, D), ("ff", "fsdp")),
+            }
+        return defs
+
+    def _backbone(self, x: torch.Tensor) -> torch.Tensor:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for lo, hi in self.groups:
+            if self.cfg.attn_every:
+                x, _ = self.shared_attn(x, positions)
+            for i in range(lo, hi):
+                x = self._remat(self.layers[i], x)
+        return x
+
+
+class XLSTMLM(_RecurrentLM):
+    """xLSTM: ``n_layers // slstm_every`` groups, each ``slstm_every - 1``
+    mLSTM blocks then one sLSTM block; ``cfg.remat`` checkpoints only the
+    mLSTM blocks.  As in the reference, when ``slstm_every`` does not
+    divide ``n_layers`` the last mLSTM blocks are defined but never run
+    (their gradients are zero)."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cpu", dtype=None):
+        super().__init__(cfg, device, dtype)
+        e = cfg.slstm_every or 0
+        self.n_slstm = cfg.n_layers // e if e else 0
+        self.n_mlstm = cfg.n_layers - self.n_slstm
+        self.per_group = (e - 1) if e else cfg.n_layers
+        self.mlstm = nn.ModuleList(MLSTMBlock(cfg, device, self._dtype)
+                                   for _ in range(self.n_mlstm))
+        if self.n_slstm:
+            self.slstm = nn.ModuleList(SLSTMBlock(cfg, device, self._dtype)
+                                       for _ in range(self.n_slstm))
+
+    def param_defs(self) -> dict:
+        """The reference's ParamDef tree."""
+        defs = {**self._head_defs(), "mlstm": mlstm_defs(self.cfg,
+                                                          self.n_mlstm)}
+        if self.n_slstm:
+            defs["slstm"] = slstm_defs(self.cfg, self.n_slstm)
+        return defs
+
+    def _backbone(self, x: torch.Tensor) -> torch.Tensor:
+        for g in range(max(self.n_slstm, 1)):
+            lo = g * self.per_group
+            for i in range(lo, min(lo + self.per_group, self.n_mlstm)):
+                x = self._remat(self.mlstm[i], x)
+            if self.n_slstm:
+                x, _ = self.slstm[g](x)
+        return x

@@ -20,9 +20,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (chunked_softmax_xent, flash_attention,
-                                       glu_mlp, rms_norm, sinusoid_positions)
-from repro_torch.models.lm import _NOT_PORTED, _param, _params
+from repro_torch.models.layers import (flash_attention, glu_mlp,
+                                       next_token_xent, rms_norm,
+                                       sinusoid_positions)
+from repro_torch.models.lm import _SERVING, _param, _params
 from repro_torch.models.params import ParamDef, torch_dtype
 
 
@@ -153,24 +154,20 @@ class WhisperModel(nn.Module):
         """Mean next-token cross-entropy of the decoder ``tokens`` (B, S)
         given the encoder ``frames`` (B, S_enc, D)."""
         cfg = self.cfg
-        B, S = tokens.shape
+        S = tokens.shape[1]
         memory = self.encode(frames)
         x = self.embed[tokens.long()].to(torch_dtype(cfg.dtype))
         x = x + self.pos_dec[None, :S].to(x.dtype)
         for layer in self.dec:
             x = self._run(layer, x, memory)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        labels = torch.roll(tokens, -1, dims=1)
-        mask = torch.ones((B, S), device=tokens.device)
-        mask[:, -1] = 0.0
-        return chunked_softmax_xent(x, self.lm_head, labels, mask,
-                                    chunk=min(512, S))
+        return next_token_xent(x, self.lm_head, tokens)
 
     def loss_fn(self, batch: dict) -> torch.Tensor:
         return self(batch["frames"], batch["tokens"])
 
     def prefill(self, *args, **kwargs):
-        raise NotImplementedError("prefill: " + _NOT_PORTED.format("serving"))
+        raise NotImplementedError("prefill: " + _SERVING)
 
     def decode_step(self, *args, **kwargs):
-        raise NotImplementedError("decode_step: " + _NOT_PORTED.format("serving"))
+        raise NotImplementedError("decode_step: " + _SERVING)

@@ -36,11 +36,13 @@ class TrainerConfig:
 
 
 def value_and_grad(model, batch: dict) -> tuple[torch.Tensor, dict]:
-    """The loss of ``batch`` and its gradient for each named parameter."""
+    """The loss of ``batch`` and its gradient for each named parameter; a
+    parameter the loss does not use gets zeros, as under ``jax.grad``."""
     named = dict(model.named_parameters())
     loss = model.loss_fn(batch)
-    grads = torch.autograd.grad(loss, list(named.values()))
-    return loss.detach(), dict(zip(named, grads))
+    grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    return loss.detach(), {n: torch.zeros_like(p) if g is None else g
+                           for (n, p), g in zip(named.items(), grads)}
 
 
 def make_grad_fn(model, *, microbatches: int = 1,

@@ -43,6 +43,7 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models import layers
 from repro_torch.models import params as P
 from repro_torch.models.api import build_model, model_flops, n_params
+from repro_torch.models.lm import TransformerLM
 from repro_torch.profiling import dispatch_attrib
 from repro_torch.train import loop
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
@@ -213,16 +214,20 @@ def _unflatten(flat):
 
 
 def test_unported_families_and_serving_raise():
-    """The SSM and hybrid families are not ported yet, nor is serving; the
-    MoE, VLM and audio families build."""
-    for arch in ("zamba2-7b", "xlstm-350m"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(get_arch(arch), device="meta")
+    """Every family builds, the SSM and hybrid ones too; serving is not
+    ported yet, so each family's ``prefill`` raises naming it; and
+    ``TransformerLM`` refuses a family it does not hold, naming the class
+    that does."""
     for arch in (ARCH, "qwen3-moe-30b-a3b", "llama-3.2-vision-11b",
-                 "whisper-small"):
+                 "whisper-small", "zamba2-7b", "xlstm-350m"):
+        build_model(get_arch(arch), device="meta")
         model = build_model(reduced(get_arch(arch)), device="meta")
         with pytest.raises(NotImplementedError, match="serving"):
             model.prefill({})
+    for arch, holder in (("zamba2-7b", "MambaLM"), ("xlstm-350m", "XLSTMLM"),
+                         ("whisper-small", "WhisperModel")):
+        with pytest.raises(ValueError, match=holder):
+            TransformerLM(get_arch(arch), device="meta")
 
 
 # ---------------------------------------------------------------------------
