@@ -161,6 +161,25 @@ read just after:
     each tensor's largest, every gradient finite; peak memory and call and
     device ms of one forward and backward.  ``family_parity`` holds both
     families too (zamba2 cut to 2 layers, xlstm to 4 blocks, batch 2 x 256).
+13. Generation for the attention families, each model freeing the card
+    before the next (no kernel of the port is on this path: its launch
+    counters must stay at zero).  ``generate`` — qwen3-0.6b whole through
+    ``python -m repro_torch.launch.serve`` (no mode word) as a subprocess,
+    8 requests of 128 tokens and 32 new tokens each in one batch; then in
+    process through ``ServeEngine.generate``, bf16 parameters from a seed:
+    qwen3-0.6b whole, the MoE cut to 4 layers and the VLM to 10 (8 x 128
+    prompts, 1,600 seeded vision embeddings a row) and whisper-small whole
+    (8 x 64 decoder prompts after 1,500 seeded frames), 32 new tokens each
+    after a warm-up call: the engine's wall time; the same loop with the
+    prefill and the decode steps timed apart (ms, tokens/s); peak memory;
+    one more decode step under ``torch.profiler`` (device ms, launches,
+    idle share); and the head's product with an f32 output against casting
+    the head to f32 first.  ``generate_parity`` — each family in f32 at its
+    least depth (dense 2 layers, MoE 2, VLM one group of 5, audio 2 + 2),
+    2 prompts of 16 tokens, on the card and on the CPU: ``prefill`` of all
+    16 against ``prefill`` of 15 then one ``decode_step`` within 1e-4 of
+    the largest |logit| on the card, the card against the CPU within 1e-3,
+    and the share of 4 greedy tokens equal on both.
 
 Every line before the last is one JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero without
@@ -220,6 +239,15 @@ FAMILY_PARITY = {"moe": (MOE_ARCH, {"n_layers": 2}),
                  "hybrid": (HYBRID_ARCH, {"n_layers": 2}),
                  "ssm": (XLSTM_ARCH, {"n_layers": 4})}
 SKEW_ROWS, SKEW_SHARE = 200_000, 0.9  # the skewed scatter-add input
+# generation, the attention families: GEN_BATCH seeded prompts of
+# GEN_PROMPT tokens (whisper: GEN_AUDIO_PROMPT decoder tokens after
+# AUDIO_FRAMES frames), GEN_NEW greedy tokens each
+GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_AUDIO_PROMPT = 8, 128, 32, 64
+# generate_parity: f32, 2 prompts of 16 tokens, 4 greedy tokens; logits
+# within these shares of the largest |logit|
+GEN_PARITY_PROMPT, GEN_PARITY_NEW = 16, 4
+GEN_TOL_STEP = 1e-4    # prefill(S-1) + decode against prefill(S), the card
+GEN_TOL_DEVICE = 1e-3  # the card against the CPU
 
 
 class SmokeFailure(RuntimeError):
@@ -1971,6 +1999,218 @@ def ssm_scan_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# generation
+# ---------------------------------------------------------------------------
+
+def _gen_inputs(cfg, rows: int, prompt: int, seed: int):
+    """Seeded prompts (rows, prompt) int32 and the family's extras, numpy
+    f32: the VLM's vision embeddings, whisper's AUDIO_FRAMES frames."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab_size, (rows, prompt)).astype(np.int32)
+    extra = {"vlm": ("vision_embed", cfg.vision_tokens),
+             "audio": ("frames", AUDIO_FRAMES)}.get(cfg.family)
+    extras = {}
+    if extra:
+        extras[extra[0]] = rng.standard_normal(
+            (rows, extra[1], cfg.d_model), dtype=np.float32)
+    return prompts, extras
+
+
+def generate_launcher_phase() -> dict:
+    """qwen3-0.6b whole through ``python -m repro_torch.launch.serve`` (no
+    mode word) as a subprocess: GEN_BATCH requests of GEN_PROMPT tokens,
+    GEN_NEW new tokens each, one batch; its ``served ...`` line parsed."""
+    import os
+    import re
+    argv = ["--arch", ARCH, "--requests", str(GEN_BATCH), "--prompt-len",
+            str(GEN_PROMPT), "--new-tokens", str(GEN_NEW), "--max-batch",
+            str(GEN_BATCH)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           *argv], capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=600)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"the generation launcher failed: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    m = re.match(r"served (\d+) requests, (\d+) tokens in ([0-9.]+)s "
+                 r"\(([0-9.]+) tok/s", lines[0] if lines else "")
+    require(m is not None and int(m[1]) == GEN_BATCH
+            and int(m[2]) == GEN_BATCH * GEN_NEW
+            and [ln.split(":")[0] for ln in lines[1:4]]
+            == [f"req{i}" for i in range(min(3, GEN_BATCH))],
+            f"the generation launcher printed {proc.stdout[-2000:]!r}")
+    return {"argv": argv, "wall_s": wall, "served_line": lines[0],
+            "serve_s": float(m[3]), "tokens_per_s": float(m[4]),
+            "req0": lines[1]}
+
+
+def generate_family(cfg, prompt: int) -> dict:
+    """``ServeEngine.generate`` on the card (bf16 parameters from a seed)
+    of GEN_BATCH seeded prompts of ``prompt`` tokens, GEN_NEW new tokens
+    each, after a warm-up call; then the same loop with the prefill and
+    the decode steps timed apart, and one more decode step under
+    ``torch.profiler``; and the head's product at batch GEN_BATCH, with an
+    f32 output against casting the head to f32 first."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models.layers import logits_f32
+    from repro_torch.serve.engine import ServeEngine
+    model = _init_model(cfg, "cuda", 0)
+    prompts, extras = _gen_inputs(cfg, GEN_BATCH, prompt, SEED_FLOAT)
+    max_len = prompt + GEN_NEW + 1
+    eng = ServeEngine(model, max_len=max_len, max_batch=GEN_BATCH)
+    eng.generate(prompts, 2, extras=extras)  # first-call set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.reset()
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompts, GEN_NEW, extras=extras)  # ends on the host
+    gen_s = time.perf_counter() - t0
+    launches = _build.launch_counts.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        batch = {"tokens": torch.from_numpy(prompts).cuda(),
+                 **{k: torch.from_numpy(v).cuda() for k, v in extras.items()}}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(batch, max_len=max_len)
+        tok = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out = [tok]
+        t0 = time.perf_counter()
+        for _ in range(GEN_NEW):
+            logits, cache = model.decode_step(cache, {"tokens": tok[:, None]})
+            tok = logits.argmax(-1).to(torch.int32)
+            out.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        split = torch.stack(out[:GEN_NEW], 1).cpu().numpy()
+        trace = profiled_step(lambda: model.decode_step(
+            cache, {"tokens": tok[:, None]}), decode_s / GEN_NEW)
+        cache_bytes = sum(t.numel() * t.element_size() for t in (
+            *cache.get("kv", ()), *(cache[k] for k in ("k", "v", "xk", "xv")
+                                    if k in cache)))
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    head = model._head() if hasattr(model, "_head") else model.lm_head
+    x = torch.randn((GEN_BATCH, cfg.d_model), device="cuda").to(head.dtype)
+    head_ms = {"f32_output_gemm": time_ms(lambda: logits_f32(x, head)),
+               "cast_then_f32_gemm": time_ms(lambda: x.float() @ head.float())}
+    del model, eng, cache, batch, logits, head, x
+    free_card()
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": GEN_BATCH,
+           "prompt": prompt, "new_tokens": GEN_NEW, "max_len": max_len,
+           "weights_bytes": weights, "cache_bytes": cache_bytes,
+           "generate_s": gen_s,
+           "generate_tokens_per_s": GEN_BATCH * GEN_NEW / gen_s,
+           "prefill_ms": prefill_s * 1e3,
+           "prefill_tokens_per_s": GEN_BATCH * prompt / prefill_s,
+           "decode_ms_per_step": decode_s / GEN_NEW * 1e3,
+           "decode_tokens_per_s": GEN_BATCH * GEN_NEW / decode_s,
+           "weights_once_ms_at_hbm": weights / HBM_BYTES_PER_S * 1e3,
+           "max_memory_allocated": peak,
+           "split_tokens_equal_generate": bool((split == tokens).all()),
+           "launches": launches, "trace": trace, "head_ms": head_ms}
+    if cfg.family == "audio":
+        res["frames"] = AUDIO_FRAMES
+    require(finite and tokens.shape == (GEN_BATCH, GEN_NEW)
+            and 0 <= tokens.min() and tokens.max() < cfg.vocab_size,
+            f"{cfg.name}: generation gave {tokens!r}, logits finite: "
+            f"{finite}")
+    return res
+
+
+def generate_phase() -> dict:
+    """Generation on the card, each model freeing the card before the next:
+    qwen3-0.6b whole through the launcher, then in process qwen3-0.6b
+    whole, the MoE cut to MOE_LAYERS, the VLM to VLM_LAYERS and
+    whisper-small whole with AUDIO_FRAMES frames."""
+    from repro_torch.configs.base import get_arch
+    out = {"launcher": generate_launcher_phase()}
+    for fam, cfg, prompt in (
+            ("dense", get_arch(ARCH), GEN_PROMPT),
+            ("moe", get_arch(MOE_ARCH).replace(name=MOE_CUT,
+                                               n_layers=MOE_LAYERS),
+             GEN_PROMPT),
+            ("vlm", get_arch(VLM_ARCH).replace(n_layers=VLM_LAYERS),
+             GEN_PROMPT),
+            ("audio", get_arch(AUDIO_ARCH), GEN_AUDIO_PROMPT)):
+        out[fam] = generate_family(cfg, prompt)
+    return out
+
+
+def generate_parity_phase() -> dict:
+    """Each attention family in f32 at its least depth (dense PARITY_LAYERS,
+    the rest their FAMILY_PARITY cut), one seed, 2 prompts of
+    GEN_PARITY_PROMPT tokens, on the card and on the CPU: ``prefill`` of
+    all the tokens, ``prefill`` of all but the last then one
+    ``decode_step`` of it, and GEN_PARITY_NEW greedy tokens through
+    ``ServeEngine``.  On the card the two ways agree within GEN_TOL_STEP of
+    the largest |logit|; the card agrees with the CPU within
+    GEN_TOL_DEVICE; the share of greedy tokens equal on both is
+    reported."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import params as P
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import ServeEngine
+    cases = {"dense": (ARCH, {"n_layers": PARITY_LAYERS}),
+             **{f: FAMILY_PARITY[f] for f in ("moe", "vlm", "audio")}}
+    out = {}
+    for fam, (arch, cut) in cases.items():
+        cfg = get_arch(arch).replace(dtype="float32", **cut)
+        tree = P.init_params(build_model(cfg, device="meta").param_defs(),
+                             torch.Generator().manual_seed(SEED_FLOAT),
+                             cfg.dtype, "cpu")
+        prompts, extras = _gen_inputs(cfg, PARITY_BATCH, GEN_PARITY_PROMPT,
+                                      SEED_INT)
+        max_len = GEN_PARITY_PROMPT + GEN_PARITY_NEW + 1
+        res = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            model = P.from_reference(build_model(cfg, device=dev), tree)
+            batch = {"tokens": torch.from_numpy(prompts).to(dev),
+                     **{k: torch.from_numpy(v).to(dev)
+                        for k, v in extras.items()}}
+            full, _ = model.prefill(batch, max_len=max_len)
+            _, cache = model.prefill(dict(batch, tokens=batch["tokens"][:, :-1]),
+                                     max_len=max_len)
+            step, _ = model.decode_step(
+                cache, {"tokens": batch["tokens"][:, -1:]})
+            tokens = ServeEngine(model, max_len=max_len).generate(
+                prompts, GEN_PARITY_NEW, extras=extras)
+            res[dev] = {"full": full.cpu().numpy(), "step": step.cpu().numpy(),
+                        "tokens": tokens, "seconds": time.perf_counter() - t0}
+            del model, cache, batch
+        free_card()
+        rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())
+        card, cpu = res["cuda"], res["cpu"]
+        row = {"arch": arch, "cut": cut, "dtype": "float32",
+               "batch": PARITY_BATCH, "prompt": GEN_PARITY_PROMPT,
+               "seed": SEED_FLOAT,
+               "card_step_vs_prefill": rel(card["step"], card["full"]),
+               "cpu_step_vs_prefill": rel(cpu["step"], cpu["full"]),
+               "card_vs_cpu_prefill": rel(card["full"], cpu["full"]),
+               "card_vs_cpu_step": rel(card["step"], cpu["step"]),
+               "greedy_tokens_equal_share": float(
+                   (card["tokens"] == cpu["tokens"]).mean()),
+               "card_s": card["seconds"], "cpu_s": cpu["seconds"]}
+        out[fam] = row
+        require(np.isfinite(card["full"]).all()
+                and row["card_step_vs_prefill"] <= GEN_TOL_STEP
+                and row["card_vs_cpu_prefill"] <= GEN_TOL_DEVICE
+                and row["card_vs_cpu_step"] <= GEN_TOL_DEVICE,
+                f"{fam}: generation disagrees: {row}")
+    out["tol_step"], out["tol_device"] = GEN_TOL_STEP, GEN_TOL_DEVICE
+    return out
+
+
 def train_profile_phase(analyze, rprf: Path, work: Path,
                         db: str = "train_db") -> dict:
     """The port's analyze on the card over a train profile."""
@@ -2378,6 +2618,10 @@ def main() -> int:
         emit({"train_xlstm": train_family_phase(
             get_arch(XLSTM_ARCH), FAMILY_STEPS, SSM_TRAIN_SEQ)})
         emit({"ssm_scan": ssm_scan_phase()})
+
+        # -- generation: the attention families on the card, then card vs CPU
+        emit({"generate": generate_phase()})
+        emit({"generate_parity": generate_parity_phase()})
         for e in entries:  # the launches of the ingest phase's float twin
             key = next(k for k in (*INGEST_KERNELS, "scatter_add",
                                    "int8_quant") if e["name"].startswith(k))

@@ -1,5 +1,16 @@
-"""Serving launcher: the query service over HTTP, live ingest and the
-regression watch.
+"""Serving launcher: batched LLM generation, the query service over HTTP,
+live ingest and the regression watch.
+
+Batched generation (no mode word) serves ``--requests`` random prompts of
+``--prompt-len`` tokens, ``--new-tokens`` greedy tokens each, coalesced
+into batches of ``--max-batch``, with parameters drawn from a seed in
+``cfg.dtype``.  It runs on the card by default (``--device cuda``; a host
+without one raises) and on the CPU with ``--device cpu``; the SSM and
+hybrid families are not served yet (``ROADMAP.md`` §1 item 1)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        [--reduced] [--requests 6] [--prompt-len 16] [--new-tokens 8] \
+        [--max-batch 4] [--device cuda|cpu]
 
 Query service over a completed analysis database::
 
@@ -46,9 +57,7 @@ work (new calls get a structured ``503 Draining``), in-flight work gets
 an orchestrator's rolling restart relies on.
 
 ``query-server`` and ``watch`` only read databases: they import no torch
-and need no card.  The reference's fourth mode, batched LLM generation
-(no mode word), is not ported yet: without a mode the launcher exits
-non-zero and says so.
+and need no card.
 """
 from __future__ import annotations
 
@@ -57,6 +66,7 @@ import json
 import signal
 import sys
 import threading
+import time
 
 
 class _SignalWatch:
@@ -386,6 +396,58 @@ def _watch_main(argv):
     print("shutting down", file=sys.stderr)
 
 
+def _generate_main(argv):
+    from repro_torch.configs.base import get_arch, reduced
+
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where generation runs: the card (a host without "
+                         "one raises), or the CPU")
+    args = ap.parse_args(argv)
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        sys.exit(f"repro_torch.launch.serve: serving the {cfg.family} "
+                 f"family ({args.arch}) is not ported yet (ROADMAP.md §1 "
+                 f"item 1)")
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.train import resolve_device
+    from repro_torch.models import params as P
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    device = resolve_device(args.device)
+    model = build_model(cfg, device=device)
+    P.from_reference(model, P.init_params(
+        model.param_defs(), torch.Generator(device=device).manual_seed(0),
+        cfg.dtype, device))
+    eng = ServeEngine(model, max_len=args.prompt_len + args.new_tokens + 1,
+                      max_batch=args.max_batch)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rng.integers(0, cfg.vocab_size,
+                                 args.prompt_len).astype(np.int32),
+                    args.new_tokens) for _ in range(args.requests)]
+    t0 = time.perf_counter()
+    outs = eng.serve(reqs)
+    dt = time.perf_counter() - t0
+    total_tokens = sum(len(o) for o in outs)
+    print(f"served {len(reqs)} requests, {total_tokens} tokens "
+          f"in {dt:.2f}s ({total_tokens/dt:.1f} tok/s incl. first-call "
+          f"set-up, on {device.type})")
+    for i, o in enumerate(outs[:3]):
+        print(f"req{i}: {o.tolist()}")
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "query-server":
@@ -395,9 +457,7 @@ def main(argv=None):
     elif argv and argv[0] == "watch":
         _watch_main(argv[1:])
     else:
-        sys.exit("repro_torch.launch.serve: batched generation (no mode "
-                 "word) is not ported yet (ROADMAP.md §1 item 5); the modes "
-                 "are query-server, ingest and watch")
+        _generate_main(argv)
 
 
 if __name__ == "__main__":

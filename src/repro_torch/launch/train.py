@@ -42,7 +42,7 @@ def resolve_device(name: str) -> torch.device:
     if name == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs an NVIDIA card, and "
                            "torch.cuda.is_available() is False on this host; "
-                           "pass --device cpu to train on the CPU")
+                           "pass --device cpu to run on the CPU")
     return torch.device(name)
 
 

@@ -1,11 +1,14 @@
-"""Model API: build an architecture and count its parameters and FLOPs.
+"""Model API: build an architecture, allocate its serving cache, and count
+its parameters and FLOPs.
 
-Port of :mod:`repro.models.api` (``build_model``, ``n_params``,
-``n_active_params``, ``model_flops``).  The sharding-rule selection and the
-input ShapeDtypeStructs of the dry-run belong to the mesh slice
-(``ROADMAP.md`` §1) and are not here.
+Port of :mod:`repro.models.api` (``build_model``, ``cache_init``,
+``n_params``, ``n_active_params``, ``model_flops``).  The sharding-rule
+selection and the input ShapeDtypeStructs of the dry-run belong to the
+mesh slice (``ROADMAP.md`` §1) and are not here.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import params as P
@@ -31,10 +34,48 @@ def model_class(cfg: ModelConfig) -> type:
 
 def build_model(cfg: ModelConfig, *, device="cpu", dtype=None):
     """The model for ``cfg``, its parameters allocated uninitialised on
-    ``device`` (``device="meta"`` allocates nothing).  Every family is
-    ported in train mode; serving (``prefill``, ``decode_step``) raises
-    ``NotImplementedError``."""
+    ``device`` (``device="meta"`` allocates nothing).  It exposes:
+
+    * ``param_defs()`` / ``cache_defs(B, S)`` — ParamDef trees (see
+      models.params); whisper's ``S`` is its encoder length;
+    * ``loss_fn(batch)`` — the training loss;
+    * ``prefill(batch, max_len=None) -> (logits, cache)``;
+    * ``decode_step(cache, batch) -> (logits, cache)``, the cache written
+      in place.
+
+    Every family trains; the SSM and hybrid families' serving methods
+    raise ``NotImplementedError`` (``ROADMAP.md`` §1 item 1)."""
     return model_class(cfg)(cfg, device=device, dtype=dtype)
+
+
+def cache_init(model, cfg: ModelConfig, batch_size: int, max_len: int, *,
+               device) -> dict:
+    """An allocated zero cache on ``device``, in ``model.cache_defs``'s
+    layout (for whisper ``max_len`` is the encoder length): KV caches in
+    ``cfg.dtype``, the SSM states ``h``/``c``/``n``/``hp`` f32, and
+    ``"len"`` the Python int 0 that the port's caches count positions
+    with."""
+    defs = model.cache_defs(batch_size, max_len)
+
+    def mk(path, d):
+        if d.shape == ():
+            return 0
+        dt = cfg.dtype
+        if "ssm" in path and path[-1] in ("h", "c", "n", "hp"):
+            dt = torch.float32
+        fill = torch.ones if d.init == "ones" else torch.zeros
+        return fill(d.shape, dtype=P.torch_dtype(dt), device=device)
+
+    return _map_with_path(mk, defs)
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_map_with_path(fn, v, path + (str(i),))
+                     for i, v in enumerate(tree))
+    return fn(path, tree)
 
 
 def n_params(cfg: ModelConfig) -> int:

@@ -1,6 +1,6 @@
 """Shared model layers: RMS norm, RoPE, chunked (flash-style) attention,
-GLU MLPs, sinusoidal positions and chunked cross-entropy, in plain
-PyTorch.
+single-step decode attention over a KV cache, GLU MLPs, sinusoidal
+positions and chunked cross-entropy, in plain PyTorch.
 
 Port of :mod:`repro.models.layers`.  None of these was a Pallas kernel in
 the reference (XLA compiled them), so library calls are used freely.  The
@@ -115,6 +115,46 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
         outs.append(kv_loop(qi, n_blocks))
     out = torch.stack(outs, dim=1)  # (B, nq, qc, KVH, G, hd)
     return out.reshape(B, Sq, H, hd)[:, :Sq0]
+
+
+def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
+    """Single-step attention: q (B, 1, H, hd) vs cache (B, T, KVH, hd).
+
+    Head ``h`` reads KV head ``h // G`` (H = KVH * G).  Positions
+    ``>= cache_len`` (an int, or a tensor that broadcasts against the
+    (B, KVH, G, T) scores, e.g. (B, 1, 1, 1) for ragged rows) are masked
+    to ``-inf``; scores and softmax are f32, the probabilities are cast to
+    the cache's dtype and multiplied with f32 accumulation."""
+    B, _, H, hd = q.shape
+    T, KVH = k_cache.shape[1], k_cache.shape[2]
+    G = H // KVH
+    qg = q.reshape(B, KVH, G, hd) / math.sqrt(hd)
+    s = torch.einsum("bkgd,btkd->bkgt", qg.float(), k_cache.float())
+    mask = torch.arange(T, device=q.device)[None, None, None, :] < cache_len
+    p = torch.softmax(s.masked_fill(~mask, -math.inf), dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def kv_write(kv, k, v, at: int) -> None:
+    """Write ``k`` and ``v`` (B, S, KVH, hd) into rows ``at..at+S-1`` of
+    the cache buffers ``kv = (k_buf, v_buf)`` (B, T, KVH, hd), in place
+    and in the buffers' dtype."""
+    kv[0][:, at:at + k.shape[1]] = k
+    kv[1][:, at:at + v.shape[1]] = v
+
+
+def logits_f32(x, w) -> torch.Tensor:
+    """``x (..., D) @ w (D, V)`` with f32 logits from operands in their own
+    dtype, the reference's ``preferred_element_type=f32``.  On the card a
+    low-precision product is one GEMM with an f32 output (``torch.mm``'s
+    ``out_dtype``), so the head is read in its own dtype and never copied
+    to f32; elsewhere the operands are upcast."""
+    if x.dtype == torch.float32 or x.device.type != "cuda":
+        return x.float() @ w.float()
+    out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def glu_mlp(x, wg, wu, wd, act: str) -> torch.Tensor:

@@ -2,19 +2,27 @@
 MoE (grok / qwen3-moe), and VLM with interleaved gated cross-attention
 (llama-3.2-vision).
 
-Port of :mod:`repro.models.lm`, train mode.  One :class:`Block` module per
-layer sits in a ``ModuleList`` and a Python loop takes the place of the
-reference's ``lax.scan``; ``cfg.remat`` checkpoints each block
-(``torch.utils.checkpoint``, non-reentrant), never the VLM's
-cross-attention, as the reference does.  For the VLM the layers run in
-``cross_attn_every``-sized groups, each after its group's
-:class:`CrossAttention`.  Parameter names and shapes are the reference's
-(``models.params`` converts the stacked layout), and weights multiply as
-``x @ w``.
+Port of :mod:`repro.models.lm`: training, and serving through
+``prefill``/``decode_step`` over the reference's cache layout.  One
+:class:`Block` module per layer sits in a ``ModuleList`` and a Python loop
+takes the place of the reference's ``lax.scan``; in training ``cfg.remat``
+checkpoints each block (``torch.utils.checkpoint``, non-reentrant), never
+the VLM's cross-attention, as the reference does.  For the VLM the layers
+run in ``cross_attn_every``-sized groups, each after its group's
+:class:`CrossAttention`, in prefill and decode too (the vision keys and
+values are recomputed each step, as the reference does).  Parameter names
+and shapes are the reference's (``models.params`` converts the stacked
+layout), and weights multiply as ``x @ w``.
 
-Not ported yet (``ROADMAP.md`` §1): ``prefill`` and ``decode_step``
-(serving), and the sharding constraints and GQA expansion, which need a
-mesh: without sharding rules the reference does not expand either.
+Serving differs from the reference in two ways (``ROADMAP.md`` §3):
+``decode_step`` writes the new token's keys and values into the cache it
+is given, in place, and returns that cache; and it raises ``ValueError``
+on a full cache, where the reference overwrites the last row.  The cache's
+``"len"`` is a Python int, so that check costs no device sync.
+
+Not ported yet (``ROADMAP.md`` §1): the sharding constraints and GQA
+expansion, which need a mesh: without sharding rules the reference does
+not expand either.
 """
 from __future__ import annotations
 
@@ -24,11 +32,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (flash_attention, glu_mlp,
+from repro_torch.models.layers import (decode_attention, flash_attention,
+                                       glu_mlp, kv_write, logits_f32,
                                        next_token_xent, rms_norm, rope)
 from repro_torch.models.params import ParamDef, torch_dtype
-
-_SERVING = "not ported yet (serving: ROADMAP.md §1 item 5)"
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -65,10 +72,19 @@ class Block(nn.Module):
             _params(self, [("w_gate", (D, F_)), ("w_up", (D, F_)),
                            ("w_down", (F_, D))], device, dtype)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor):
-        return self.mlp(self.attention(x, positions))
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, kv=None,
+                cache_len: int | None = None):
+        """``(x, aux)``; in serving ``kv`` is this layer's cache buffers
+        (:meth:`attention`)."""
+        return self.mlp(self.attention(x, positions, kv, cache_len))
 
-    def attention(self, x, positions):
+    def attention(self, x, positions, kv=None, cache_len: int | None = None):
+        """``x`` + causal self-attention.  ``kv``, in serving, is this
+        layer's ``(k_buf, v_buf)`` cache, each (B, T, KVH, hd).  Prefill
+        (``cache_len`` None) writes the prompt's keys and values into rows
+        0..S-1 and attends over the prompt; decode (S = 1) writes row
+        ``cache_len`` in place and attends over the first ``cache_len + 1``
+        rows."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -81,8 +97,15 @@ class Block(nn.Module):
             k = rms_norm(k, self.k_norm, cfg.norm_eps)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        attn = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
-                               kv_chunk=cfg.kv_chunk, mode=cfg.causal_mode)
+        if kv is not None:
+            kv_write(kv, k, v, cache_len or 0)
+        if cache_len is None:
+            attn = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                                   kv_chunk=cfg.kv_chunk,
+                                   mode=cfg.causal_mode)
+        else:
+            n = cache_len + 1
+            attn = decode_attention(q, kv[0][:, :n], kv[1][:, :n], n)
         return x + attn.reshape(B, S, H * hd) @ self.wo
 
     def mlp(self, x):
@@ -216,18 +239,39 @@ class TransformerLM(nn.Module):
     def _head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
-    def _blocks(self, first: int, last: int, x, positions, aux: list):
+    def _blocks(self, first: int, last: int, x, positions, aux: list,
+                kv=None, cache_len: int | None = None):
         """Layers ``first..last-1`` over ``x``; their MoE aux losses are
-        appended to ``aux``."""
+        appended to ``aux``.  In serving ``kv`` is the whole cache's
+        ``(k, v)``, each (L, B, T, KVH, hd), and layer ``i`` gets its
+        slice; ``cfg.remat`` applies in training only."""
         for i in range(first, last):
             blk = self.layers[i]
-            if self.cfg.remat:
+            if kv is not None:
+                x, a = blk(x, positions, (kv[0][i], kv[1][i]), cache_len)
+            elif self.cfg.remat:
                 x, a = checkpoint(blk, x, positions, use_reentrant=False,
                                   preserve_rng_state=False)
             else:
                 x, a = blk(x, positions)
             if a is not None:
                 aux.append(a)
+        return x
+
+    def _backbone(self, x, positions, vision_embed, aux: list, kv=None,
+                  cache_len: int | None = None) -> torch.Tensor:
+        """Every layer over ``x``; the VLM's groups each after their
+        cross-attention to ``vision_embed``."""
+        cfg = self.cfg
+        if cfg.family != "vlm":
+            return self._blocks(0, cfg.n_layers, x, positions, aux, kv,
+                                cache_len)
+        every = cfg.cross_attn_every
+        vis = vision_embed.to(x.dtype)
+        for g, cross in enumerate(self.cross):
+            x = cross(x, vis)
+            x = self._blocks(g * every, (g + 1) * every, x, positions, aux,
+                             kv, cache_len)
         return x
 
     def forward(self, tokens: torch.Tensor,
@@ -239,15 +283,7 @@ class TransformerLM(nn.Module):
         x = self._embed_in(tokens)
         positions = torch.arange(S, device=tokens.device)[None, :]
         aux: list[torch.Tensor] = []
-        if cfg.family == "vlm":
-            every = cfg.cross_attn_every
-            vis = vision_embed.to(x.dtype)
-            for g, cross in enumerate(self.cross):
-                x = cross(x, vis)
-                x = self._blocks(g * every, (g + 1) * every, x, positions,
-                                 aux)
-        else:
-            x = self._blocks(0, cfg.n_layers, x, positions, aux)
+        x = self._backbone(x, positions, vision_embed, aux)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         loss = next_token_xent(x, self._head(), tokens)
         if aux:  # the reference adds 0.01 * aux / n_layers, 0 without MoE
@@ -258,8 +294,66 @@ class TransformerLM(nn.Module):
         vision = batch["vision_embed"] if self.cfg.family == "vlm" else None
         return self(batch["tokens"], vision)
 
-    def prefill(self, *args, **kwargs):
-        raise NotImplementedError("prefill: " + _SERVING)
+    # -- serving -------------------------------------------------------------
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits (B, V) of the last hidden states ``x`` (B, D)."""
+        return logits_f32(rms_norm(x, self.final_norm, self.cfg.norm_eps),
+                          self._head())
 
-    def decode_step(self, *args, **kwargs):
-        raise NotImplementedError("decode_step: " + _SERVING)
+    @torch.inference_mode()
+    def prefill(self, batch: dict, max_len: int | None = None):
+        """``(logits (B, V) f32 of the last position, cache)`` of the
+        prompt ``batch["tokens"]`` (B, S) (and the VLM's
+        ``batch["vision_embed"]``).  Each layer's keys and values are
+        written once into a cache preallocated at ``max(S, max_len)``
+        positions, zeros past S."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = self._embed_in(tokens)
+        shape = (cfg.n_layers, B, max(S, max_len or 0), cfg.n_kv_heads,
+                 cfg.hd)
+        kv = tuple(torch.zeros(shape, dtype=torch_dtype(cfg.dtype),
+                               device=x.device) for _ in range(2))
+        positions = torch.arange(S, device=x.device)[None, :]
+        vision = batch["vision_embed"] if cfg.family == "vlm" else None
+        x = self._backbone(x, positions, vision, [], kv)
+        cache = {"kv": kv, "len": S}
+        if cfg.family == "vlm":
+            cache["vision_embed"] = vision
+        return self._logits(x[:, -1]), cache
+
+    @torch.inference_mode()
+    def decode_step(self, cache: dict, batch: dict):
+        """One token for every sequence, ``batch["tokens"]`` (B, 1):
+        ``(logits (B, V) f32, cache)``.  The token's keys and values are
+        written into row ``cache["len"]`` of ``cache`` in place, and
+        ``cache`` itself is returned with ``"len"`` one more; a full cache
+        raises ``ValueError``."""
+        clen = int(cache["len"])
+        T = cache["kv"][0].shape[2]
+        if clen >= T:
+            raise ValueError(f"decode_step: the cache is full ({clen} of {T} "
+                             f"positions)")
+        tokens = batch["tokens"]
+        x = self._embed_in(tokens)
+        positions = torch.full((tokens.shape[0], 1), clen, device=x.device)
+        x = self._backbone(x, positions, cache.get("vision_embed"), [],
+                           cache["kv"], clen)
+        cache["len"] = clen + 1
+        return self._logits(x[:, -1]), cache
+
+    def cache_defs(self, batch_size: int, max_len: int) -> dict:
+        """The reference's cache layout: ``kv`` is (k, v), each
+        (L, B, max_len, KVH, hd); the VLM adds ``vision_embed``."""
+        cfg = self.cfg
+        L, KVH, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+        kv = ParamDef((L, batch_size, max_len, KVH, hd),
+                      ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+                      "zeros")
+        defs = {"kv": (kv, kv), "len": ParamDef((), (), "zeros")}
+        if cfg.family == "vlm":
+            defs["vision_embed"] = ParamDef(
+                (batch_size, cfg.vision_tokens, cfg.d_model),
+                ("batch", None, "embed"), "zeros")
+        return defs

@@ -29,9 +29,10 @@ Two rules of :func:`linear_rnn_chunked` differ from a literal transcription:
 
 The blocks keep the reference's ``state=None`` argument and
 ``(x, new_state)`` result; ``prefill``, ``decode_step`` and ``cache_defs``
-(serving) are not ported yet.  Parameter names and shapes are the
-reference's: ``layers.<i>.<name>``, ``mlstm.<i>.<name>`` and
-``slstm.<i>.<name>`` are its stacked groups (``models.params``), and the
+(serving, ``ROADMAP.md`` §1 item 1) are not ported yet and raise.
+Parameter names and shapes are the reference's: ``layers.<i>.<name>``,
+``mlstm.<i>.<name>`` and ``slstm.<i>.<name>`` are its stacked groups
+(``models.params``), and the
 hybrid's ``shared_attn`` is the port's :class:`~repro_torch.models.lm.Block`
 on the same config, one parameter set applied before every group.
 """
@@ -46,8 +47,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import next_token_xent, rms_norm
-from repro_torch.models.lm import _SERVING, Block, _param, _params
+from repro_torch.models.lm import Block, _param, _params
 from repro_torch.models.params import ParamDef, torch_dtype
+
+_SERVING = ("not ported yet (serving of the SSM and hybrid families: "
+            "ROADMAP.md §1 item 1)")
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,23 @@
 """Whisper-style encoder-decoder (audio backbone only).
 
-Port of :mod:`repro.models.whisper`, train mode.  As in the reference the
-conv frontend is a stub: the batch carries precomputed frame embeddings
-``frames`` (B, S_enc, d_model).  The encoder is non-causal self-attention
-over frames with sinusoidal positions, each layer checkpointed in every
-mode; the decoder is causal self-attention, cross-attention over the
-encoder output and the GLU MLP with learned positions, each layer
-checkpointed in train when ``cfg.remat``.  Parameter names are the
+Port of :mod:`repro.models.whisper`: training and serving.  As in the
+reference the conv frontend is a stub: the batch carries precomputed frame
+embeddings ``frames`` (B, S_enc, d_model).  The encoder is non-causal
+self-attention over frames with sinusoidal positions; the decoder is
+causal self-attention, cross-attention over the encoder output and the GLU
+MLP with learned positions and no rope.  With ``cfg.remat`` every layer is
+checkpointed while gradients are recorded (the reference checkpoints the
+encoder in every mode, which changes no value).  Parameter names are the
 reference's: ``enc.<i>.<name>`` and ``dec.<i>.<name>`` are its stacked
 ``enc/<name>`` and ``dec/<name>`` (``models.params``).
 
-``prefill`` and ``decode_step`` (serving, ``ROADMAP.md`` §1 item 5) are not
-ported yet.
+Serving keeps the reference's cache: ``prefill`` encodes the frames once
+and caches the decoder's self keys and values, always padded to
+``cfg.max_decoder_len``, and each layer's cross keys and values over all
+the frames; ``cache_defs`` takes the encoder length where the other
+families take ``max_len``.  As in :mod:`repro_torch.models.lm`,
+``decode_step`` writes the cache it is given in place and raises
+``ValueError`` on a full cache (``ROADMAP.md`` §3).
 """
 from __future__ import annotations
 
@@ -20,10 +26,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (flash_attention, glu_mlp,
+from repro_torch.models.layers import (decode_attention, flash_attention,
+                                       glu_mlp, kv_write, logits_f32,
                                        next_token_xent, rms_norm,
                                        sinusoid_positions)
-from repro_torch.models.lm import _SERVING, _param, _params
+from repro_torch.models.lm import _param, _params
 from repro_torch.models.params import ParamDef, torch_dtype
 
 
@@ -63,9 +70,10 @@ class _Layer(nn.Module):
         _params(self, [("ln_mlp", (D,)), ("w_gate", (D, F_)),
                        ("w_up", (D, F_)), ("w_down", (F_, D))], device, dtype)
 
-    def _attend(self, x, memory, prefix: str, causal: bool):
+    def _attend(self, x, memory, prefix: str, causal: bool, store=None):
         """``x`` + attention of ``x`` over ``memory`` (``x`` itself when
-        None) with the ``prefix`` weights."""
+        None) with the ``prefix`` weights; the keys and values are also
+        written into rows 0.. of the cache buffers ``store``, if given."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -75,21 +83,53 @@ class _Layer(nn.Module):
         q = (h @ p("wq")).reshape(B, S, H, hd)
         k = (src @ p("wk")).reshape(B, -1, KVH, hd)
         v = (src @ p("wv")).reshape(B, -1, KVH, hd)
+        if store is not None:
+            kv_write(store, k, v, 0)
         a = flash_attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk,
                             kv_chunk=cfg.kv_chunk)
         return x + a.reshape(B, S, H * hd) @ p("wo")
 
-    def forward(self, x: torch.Tensor, memory: torch.Tensor | None = None
-                ) -> torch.Tensor:
-        """An encoder layer without ``memory``, a decoder layer with it."""
+    def _mlp(self, x):
         cfg = self.cfg
+        h2 = rms_norm(x, self.ln_mlp, cfg.norm_eps)
+        return x + glu_mlp(h2, self.w_gate, self.w_up, self.w_down, cfg.act)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor | None = None,
+                store=None) -> torch.Tensor:
+        """An encoder layer without ``memory``, a decoder layer with it.
+        In prefill ``store`` is the decoder layer's ``(k, v, xk, xv)``
+        cache buffers: the prompt's self keys and values fill rows 0..S-1,
+        the cross keys and values every row."""
         if memory is None:
             x = self._attend(x, None, "", causal=False)
         else:
-            x = self._attend(x, None, "", causal=True)
-            x = self._attend(x, memory, "x_", causal=False)
-        h2 = rms_norm(x, self.ln_mlp, cfg.norm_eps)
-        return x + glu_mlp(h2, self.w_gate, self.w_up, self.w_down, cfg.act)
+            x = self._attend(x, None, "", causal=True,
+                             store=None if store is None else store[:2])
+            x = self._attend(x, memory, "x_", causal=False,
+                             store=None if store is None else store[2:])
+        return self._mlp(x)
+
+    def decode(self, x: torch.Tensor, store, cache_len: int) -> torch.Tensor:
+        """One decoder step, ``x`` (B, 1, D): the self keys and values go
+        into row ``cache_len`` of ``store``'s ``(k, v)`` in place and the
+        query attends over ``cache_len + 1`` rows; the cross-attention
+        reads the cached ``(xk, xv)`` over every frame."""
+        cfg = self.cfg
+        B = x.shape[0]
+        H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        k_buf, v_buf, xk, xv = store
+        h = rms_norm(x, self.ln, cfg.norm_eps)
+        q = (h @ self.wq).reshape(B, 1, H, hd)
+        kv_write((k_buf, v_buf), (h @ self.wk).reshape(B, 1, KVH, hd),
+                 (h @ self.wv).reshape(B, 1, KVH, hd), cache_len)
+        n = cache_len + 1
+        a = decode_attention(q, k_buf[:, :n], v_buf[:, :n], n)
+        x = x + a.reshape(B, 1, H * hd) @ self.wo
+        h = rms_norm(x, self.x_ln, cfg.norm_eps)
+        q = (h @ self.x_wq).reshape(B, 1, H, hd)
+        a = decode_attention(q, xk, xv, xk.shape[1])
+        x = x + a.reshape(B, 1, H * hd) @ self.x_wo
+        return self._mlp(x)
 
 
 class WhisperModel(nn.Module):
@@ -135,7 +175,7 @@ class WhisperModel(nn.Module):
         }
 
     def _run(self, layer, x, memory=None):
-        if self.cfg.remat:
+        if self.cfg.remat and torch.is_grad_enabled():
             return checkpoint(layer, x, memory, use_reentrant=False,
                               preserve_rng_state=False)
         return layer(x, memory)
@@ -149,15 +189,20 @@ class WhisperModel(nn.Module):
             x = self._run(layer, x)
         return rms_norm(x, self.enc_norm, cfg.norm_eps)
 
+    def _embed_dec(self, tokens: torch.Tensor, first: int) -> torch.Tensor:
+        """Decoder inputs: the tokens' embeddings plus the learned
+        positions ``first..first+S-1``."""
+        x = self.embed[tokens.long()].to(torch_dtype(self.cfg.dtype))
+        return x + self.pos_dec[None, first:first + tokens.shape[1]].to(
+            x.dtype)
+
     def forward(self, frames: torch.Tensor, tokens: torch.Tensor
                 ) -> torch.Tensor:
         """Mean next-token cross-entropy of the decoder ``tokens`` (B, S)
         given the encoder ``frames`` (B, S_enc, D)."""
         cfg = self.cfg
-        S = tokens.shape[1]
         memory = self.encode(frames)
-        x = self.embed[tokens.long()].to(torch_dtype(cfg.dtype))
-        x = x + self.pos_dec[None, :S].to(x.dtype)
+        x = self._embed_dec(tokens, 0)
         for layer in self.dec:
             x = self._run(layer, x, memory)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
@@ -166,8 +211,72 @@ class WhisperModel(nn.Module):
     def loss_fn(self, batch: dict) -> torch.Tensor:
         return self(batch["frames"], batch["tokens"])
 
-    def prefill(self, *args, **kwargs):
-        raise NotImplementedError("prefill: " + _SERVING)
+    # -- serving -------------------------------------------------------------
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits (B, V) of the last hidden states ``x`` (B, D)."""
+        return logits_f32(rms_norm(x, self.final_norm, self.cfg.norm_eps),
+                          self.lm_head)
 
-    def decode_step(self, *args, **kwargs):
-        raise NotImplementedError("decode_step: " + _SERVING)
+    @torch.inference_mode()
+    def prefill(self, batch: dict, max_len: int | None = None):
+        """Encode ``batch["frames"]`` and run the decoder prompt
+        ``batch["tokens"]`` (B, S): ``(logits (B, V) f32 of the last
+        position, cache)``.  The self keys and values are cached padded to
+        ``cfg.max_decoder_len`` whatever ``max_len`` says (accepted for
+        the families' common API, as in the reference), and each layer's
+        cross keys and values over every frame."""
+        cfg = self.cfg
+        memory = self.encode(batch["frames"])
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        if S > cfg.max_decoder_len:
+            raise ValueError(f"prefill: {S} decoder tokens, more than "
+                             f"max_decoder_len {cfg.max_decoder_len}")
+        dt, dev = torch_dtype(cfg.dtype), memory.device
+        shape = lambda T: (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.hd)
+        cache = {n: torch.zeros(shape(cfg.max_decoder_len), dtype=dt,
+                                device=dev) for n in ("k", "v")}
+        cache.update({n: torch.empty(shape(memory.shape[1]), dtype=dt,
+                                     device=dev) for n in ("xk", "xv")})
+        cache["len"] = S
+        x = self._embed_dec(tokens, 0)
+        for i, layer in enumerate(self.dec):
+            x = layer(x, memory, _layer_cache(cache, i))
+        return self._logits(x[:, -1]), cache
+
+    @torch.inference_mode()
+    def decode_step(self, cache: dict, batch: dict):
+        """One token for every sequence, ``batch["tokens"]`` (B, 1):
+        ``(logits (B, V) f32, cache)``, ``cache`` written in place and
+        returned with ``"len"`` one more; a full cache (``len`` at
+        ``max_decoder_len``) raises ``ValueError``."""
+        clen = int(cache["len"])
+        T = cache["k"].shape[2]
+        if clen >= T:
+            raise ValueError(f"decode_step: the cache is full ({clen} of {T} "
+                             f"positions)")
+        x = self._embed_dec(batch["tokens"], clen)
+        for i, layer in enumerate(self.dec):
+            x = layer.decode(x, _layer_cache(cache, i), clen)
+        cache["len"] = clen + 1
+        return self._logits(x[:, -1]), cache
+
+    def cache_defs(self, batch_size: int, enc_len: int) -> dict:
+        """The reference's cache layout: self ``k``/``v`` (Ld, B,
+        max_decoder_len, KVH, hd), cross ``xk``/``xv`` (Ld, B, enc_len,
+        KVH, hd)."""
+        cfg = self.cfg
+        Ld, KVH, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+        self_kv = ParamDef((Ld, batch_size, cfg.max_decoder_len, KVH, hd),
+                           ("layers", "batch", None, "kv_heads", "head_dim"),
+                           "zeros")
+        cross_kv = ParamDef((Ld, batch_size, enc_len, KVH, hd),
+                            ("layers", "batch", "kv_seq", "kv_heads",
+                             "head_dim"), "zeros")
+        return {"k": self_kv, "v": self_kv, "xk": cross_kv, "xv": cross_kv,
+                "len": ParamDef((), (), "zeros")}
+
+
+def _layer_cache(cache: dict, i: int) -> tuple:
+    """Decoder layer ``i``'s ``(k, v, xk, xv)`` cache buffers (views)."""
+    return tuple(cache[n][i] for n in ("k", "v", "xk", "xv"))

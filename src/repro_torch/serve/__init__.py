@@ -1,8 +1,8 @@
-"""Serving subsystem: the query service.
+"""Serving subsystem: batched generation + the query service.
 
-* :class:`QueryServer` — the in-process batch engine
-  (:mod:`repro_torch.serve.engine`; the reference's generation engine,
-  ``ServeEngine``, is not ported yet);
+* :class:`ServeEngine` / :class:`QueryServer` — in-process batch engines
+  (:mod:`repro_torch.serve.engine`; ``ServeEngine`` imports torch only
+  when it runs);
 * :class:`BatchScheduler` — cross-request micro-batch windows with
   per-shard admission control, adaptive wait, and deadlines
   (:mod:`repro_torch.serve.scheduler`);
@@ -20,7 +20,8 @@
 from repro_torch.serve.client import (JSONClient, QueryClient, RequestFailed,
                                       RetryBudgetExceeded, RetryPolicy,
                                       ServerOverloaded, TransportError)
-from repro_torch.serve.engine import QueryError, QueryRequest, QueryServer
+from repro_torch.serve.engine import (QueryError, QueryRequest, QueryServer,
+                                      Request, ServeEngine)
 from repro_torch.serve.http import QueryHTTPServer
 from repro_torch.serve.scheduler import BatchScheduler, Overloaded
 from repro_torch.serve.shard import ConsistentHashRing, ShardedQueryServer
@@ -28,6 +29,7 @@ from repro_torch.serve.tenant import TenantBackend, parse_tenant_arg
 from repro_torch.serve.warm import plan_warm, warm_cache
 
 __all__ = [
+    "ServeEngine", "Request",
     "QueryServer", "QueryRequest", "QueryError",
     "BatchScheduler", "Overloaded",
     "ShardedQueryServer", "ConsistentHashRing",

@@ -1,20 +1,88 @@
-"""Batched postmortem query serving.
+"""Batched serving engines: generation and postmortem queries.
 
-:class:`QueryServer` serves :class:`QueryRequest` batches from one shared
-:class:`repro_torch.query.Database`: a batch is sorted by target plane so
-every plane is decoded once and the LRU (with coalesced concurrent misses)
-serves the rest — "the cache does the batching".
+Two request classes share the coalescing philosophy — group work so the
+expensive unit (a forward pass; a decoded database plane) is paid once per
+group:
 
-This is the query half of the reference's ``serve/engine.py``; its
-generation half (``Request``, ``ServeEngine``: a jitted prefill and decode
-loop) needs the model's ``prefill``/``decode_step``, which the port does not
-have yet.  The module imports no torch: the query service runs with no card.
+* :class:`ServeEngine` — LLM generation: requests are coalesced into
+  fixed-size batch slots (padded prompts with a left-aligned layout and
+  per-slot length masks are avoided by grouping same-length prompts); the
+  decode loop is one ``decode_step`` per token over the whole batch, the
+  tokens kept on the model's device until the end;
+* :class:`QueryServer` — postmortem analysis queries served from one
+  shared :class:`repro_torch.query.Database`: a batch is sorted by target
+  plane so every plane is decoded once and the LRU (with coalesced
+  concurrent misses) serves the rest — "the cache does the batching".
+
+The module imports no torch: the query service runs with no card, and its
+shard workers fork only while torch is not loaded.  :class:`ServeEngine`
+imports torch when it runs.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import numpy as np
+
 from repro_torch.obs import monotime, recorder
+
+
+@dataclass
+class Request:
+    tokens: np.ndarray          # (S,) prompt
+    n_new: int
+
+
+class ServeEngine:
+    """Greedy generation with ``model`` (its parameters live in the
+    module, on the device generation runs on); every cache holds
+    ``max_len`` positions."""
+
+    def __init__(self, model, *, max_len: int, max_batch: int = 8):
+        self.model = model
+        self.max_len = max_len
+        self.max_batch = max_batch
+
+    # -- core batched generation ----------------------------------------------
+    def generate(self, prompts: np.ndarray, n_new: int, *, greedy: bool = True,
+                 extras: dict | None = None) -> np.ndarray:
+        """prompts (B, S) int32 -> (B, n_new) int32 generated tokens: a
+        prefill, then ``n_new`` decode steps of argmax, the reference's
+        loop (its last step's logits are unused).  ``extras`` adds batch
+        entries (the VLM's ``vision_embed``, whisper's ``frames``)."""
+        import torch
+        dev = next(self.model.parameters()).device
+        with torch.inference_mode():
+            batch = {"tokens": torch.from_numpy(
+                np.asarray(prompts, np.int32)).to(dev)}
+            for k, v in (extras or {}).items():
+                batch[k] = torch.as_tensor(np.asarray(v)).to(dev)
+            logits, cache = self.model.prefill(batch, max_len=self.max_len)
+            out = torch.empty((len(prompts), n_new), dtype=torch.int32,
+                              device=dev)
+            tok = logits.argmax(-1).to(torch.int32)
+            for t in range(n_new):
+                out[:, t] = tok
+                logits, cache = self.model.decode_step(
+                    cache, {"tokens": tok[:, None]})
+                tok = logits.argmax(-1).to(torch.int32)
+            return out.cpu().numpy()
+
+    # -- request coalescing -----------------------------------------------------
+    def serve(self, requests: list[Request]) -> list[np.ndarray]:
+        """Group same-shape requests into batches of up to max_batch."""
+        buckets: dict[tuple[int, int], list[int]] = {}
+        for i, r in enumerate(requests):
+            buckets.setdefault((len(r.tokens), r.n_new), []).append(i)
+        results: list[np.ndarray | None] = [None] * len(requests)
+        for (S, n_new), idxs in buckets.items():
+            for lo in range(0, len(idxs), self.max_batch):
+                group = idxs[lo : lo + self.max_batch]
+                prompts = np.stack([requests[i].tokens for i in group])
+                gen = self.generate(prompts, n_new)
+                for row, i in enumerate(group):
+                    results[i] = gen[row]
+        return results
 
 
 # ---------------------------------------------------------------------------

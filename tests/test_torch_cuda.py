@@ -882,3 +882,72 @@ def test_ssm_family_train_step_on_card(dev, arch):
     assert np.isfinite(lc) and np.isfinite(gc)
     assert lc == pytest.approx(l0, rel=1e-2)
     assert gc == pytest.approx(g0, rel=2e-2)
+
+
+def _f32_model(arch, device):
+    """A reduced model of ``arch`` in f32, its weights from one seed on the
+    CPU."""
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.models import params as P
+    from repro_torch.models.api import build_model
+    cfg = reduced(get_arch(arch))
+    tree = P.init_params(build_model(cfg, device="meta").param_defs(),
+                         torch.Generator().manual_seed(0), cfg.dtype, "cpu")
+    return cfg, P.from_reference(build_model(cfg, device=device), tree)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen3-moe-30b-a3b",
+                                  "llama-3.2-vision-11b", "whisper-small"])
+def test_generation_card_matches_cpu(dev, arch):
+    """Each attention family, reduced, in f32: ``prefill`` of 4 x 12
+    tokens (``max_len`` 16) and 3 ``decode_step``s on the card give the
+    CPU's logits within 1e-4 of the largest |logit| and every cache leaf
+    within 1e-4 of its largest entry; then a full cache raises
+    ``ValueError`` on the card too."""
+    res = []
+    for device in (dev, torch.device("cpu")):
+        cfg, model = _f32_model(arch, device)
+        batch = _family_batch(cfg, device, rows=4, seq=12)
+        logits, cache = model.prefill(batch, max_len=16)
+        steps = [logits]
+        for i in range(3):
+            tok = batch["tokens"][:, i:i + 1]
+            logits, cache = model.decode_step(cache, {"tokens": tok})
+            steps.append(logits)
+        leaves = {k: v.cpu() for k, v in cache.items()
+                  if isinstance(v, torch.Tensor)}
+        leaves.update({f"kv{i}": t.cpu()
+                       for i, t in enumerate(cache.get("kv", ()))})
+        res.append(([s.cpu() for s in steps], leaves, cache["len"]))
+        if device.type == "cuda":
+            full = cfg.max_decoder_len if cfg.family == "audio" else 16
+            tok = batch["tokens"][:, :1]
+            with pytest.raises(ValueError, match="cache is full"):
+                for _ in range(full):
+                    model.decode_step(cache, {"tokens": tok})
+    (card, card_leaves, card_len), (cpu, cpu_leaves, cpu_len) = res
+    assert card_len == cpu_len == 15
+    for got, want in zip(card, cpu):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * want.abs().max().item())
+    assert sorted(card_leaves) == sorted(cpu_leaves)
+    for k, want in cpu_leaves.items():
+        torch.testing.assert_close(card_leaves[k], want, rtol=0,
+                                   atol=1e-4 * want.abs().max().item(),
+                                   msg=k)
+
+
+def test_logits_f32_card_matches_cpu(dev):
+    """The serving head's product at qwen3-0.6b's width in bf16: on the
+    card one GEMM with an f32 output, on the CPU the upcast operands;
+    within 1e-5 of the largest logit."""
+    from repro_torch.models.layers import logits_f32
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 1024, generator=g).bfloat16()
+    w = (torch.randn(1024, 151_936, generator=g) * 0.02).bfloat16()
+    want = logits_f32(x, w)
+    got = logits_f32(x.to(dev), w.to(dev))
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())

@@ -430,10 +430,14 @@ def test_serve_ingest_cli_without_a_card_exits_nonzero(tmp_path):
 
 
 def test_serve_without_a_mode_names_what_is_missing():
-    proc = _serve_cli("--arch", "qwen3-0.6b")
+    """With no mode word the launcher generates, on the card by default:
+    a host without one exits non-zero, naming the missing card (no
+    fallback to the CPU)."""
+    proc = _serve_cli("--arch", "qwen3-0.6b",
+                      env_extra={"CUDA_VISIBLE_DEVICES": ""})
     out, err = proc.communicate(timeout=60)
     assert proc.returncode != 0 and out == b""
-    assert b"not ported yet" in err and b"item 5" in err
+    assert b"needs an NVIDIA card" in err and b"--device cpu" in err
 
 
 def test_serve_ingest_cli_round_trip_and_sigterm_drain(tmp_path):

@@ -214,12 +214,29 @@ def _unflatten(flat):
 
 
 def test_unported_families_and_serving_raise():
-    """Every family builds, the SSM and hybrid ones too; serving is not
-    ported yet, so each family's ``prefill`` raises naming it; and
-    ``TransformerLM`` refuses a family it does not hold, naming the class
-    that does."""
+    """Every family builds, the SSM and hybrid ones too; ``prefill`` serves
+    the dense, MoE, VLM and audio families (f32 logits of the last
+    position) and raises naming serving only for the SSM and hybrid ones,
+    whose serving is not ported yet; and ``TransformerLM`` refuses a family
+    it does not hold, naming the class that does."""
+    rng = np.random.default_rng(0)
     for arch in (ARCH, "qwen3-moe-30b-a3b", "llama-3.2-vision-11b",
-                 "whisper-small", "zamba2-7b", "xlstm-350m"):
+                 "whisper-small"):
+        build_model(get_arch(arch), device="meta")
+        cfg = reduced(get_arch(arch))
+        model = build_model(cfg)
+        P.from_reference(model, P.init_params(
+            model.param_defs(), torch.Generator().manual_seed(0), cfg.dtype,
+            "cpu"))
+        batch = {"tokens": _t(rng.integers(0, cfg.vocab_size, (1, 4)))}
+        extra = {"vlm": ("vision_embed", cfg.vision_tokens),
+                 "audio": ("frames", 8)}.get(cfg.family)
+        if extra:
+            batch[extra[0]] = torch.randn(1, extra[1], cfg.d_model)
+        logits, cache = model.prefill(batch)
+        assert logits.shape == (1, cfg.vocab_size)
+        assert logits.dtype == torch.float32 and cache["len"] == 4
+    for arch in ("zamba2-7b", "xlstm-350m"):
         build_model(get_arch(arch), device="meta")
         model = build_model(reduced(get_arch(arch)), device="meta")
         with pytest.raises(NotImplementedError, match="serving"):
