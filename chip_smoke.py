@@ -161,25 +161,32 @@ read just after:
     each tensor's largest, every gradient finite; peak memory and call and
     device ms of one forward and backward.  ``family_parity`` holds both
     families too (zamba2 cut to 2 layers, xlstm to 4 blocks, batch 2 x 256).
-13. Generation for the attention families, each model freeing the card
-    before the next (no kernel of the port is on this path: its launch
-    counters must stay at zero).  ``generate`` — qwen3-0.6b whole through
+13. Generation for every family, each model freeing the card before the
+    next (no kernel of the port is on this path: its launch counters are
+    reported).  ``generate`` — qwen3-0.6b whole through
     ``python -m repro_torch.launch.serve`` (no mode word) as a subprocess,
     8 requests of 128 tokens and 32 new tokens each in one batch; then in
     process through ``ServeEngine.generate``, bf16 parameters from a seed:
     qwen3-0.6b whole, the MoE cut to 4 layers and the VLM to 10 (8 x 128
-    prompts, 1,600 seeded vision embeddings a row) and whisper-small whole
-    (8 x 64 decoder prompts after 1,500 seeded frames), 32 new tokens each
-    after a warm-up call: the engine's wall time; the same loop with the
-    prefill and the decode steps timed apart (ms, tokens/s); peak memory;
-    one more decode step under ``torch.profiler`` (device ms, launches,
-    idle share); and the head's product with an f32 output against casting
-    the head to f32 first.  ``generate_parity`` — each family in f32 at its
-    least depth (dense 2 layers, MoE 2, VLM one group of 5, audio 2 + 2),
-    2 prompts of 16 tokens, on the card and on the CPU: ``prefill`` of all
-    16 against ``prefill`` of 15 then one ``decode_step`` within 1e-4 of
-    the largest |logit| on the card, the card against the CPU within 1e-3,
-    and the share of 4 greedy tokens equal on both.
+    prompts, 1,600 seeded vision embeddings a row), whisper-small whole
+    (8 x 64 decoder prompts after 1,500 seeded frames), and the recurrent
+    families whole at the published chunk of 256 (8 x 128 prompts):
+    zamba2-7b (81 Mamba2 layers, the shared attention block applied 14
+    times, each application with its own KV cache) and xlstm-350m (18
+    mLSTM and 6 sLSTM blocks), 32 new tokens each after a warm-up call:
+    the engine's wall time; the same loop with the prefill and the decode
+    steps timed apart (ms, tokens/s); peak memory; the weights' and the
+    cache's bytes (every tensor leaf: KV caches, scan states, conv
+    windows); one more decode step under ``torch.profiler`` (device ms,
+    launches, idle share); and the head's product with an f32 output
+    against casting the head to f32 first.  ``generate_parity`` — each
+    family in f32 at its least depth (dense 2 layers, MoE 2, VLM one group
+    of 5, audio 2 + 2, zamba2 2 layers with one attention application,
+    xlstm 4 blocks with an sLSTM), 2 prompts of 16 tokens, on the card and
+    on the CPU: ``prefill`` of all 16 against ``prefill`` of 15 then one
+    ``decode_step`` within 1e-4 of the largest |logit| on the card, the
+    card against the CPU within 1e-3, and the share of 4 greedy tokens
+    equal on both.
 
 Every line before the last is one JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero without
@@ -239,7 +246,7 @@ FAMILY_PARITY = {"moe": (MOE_ARCH, {"n_layers": 2}),
                  "hybrid": (HYBRID_ARCH, {"n_layers": 2}),
                  "ssm": (XLSTM_ARCH, {"n_layers": 4})}
 SKEW_ROWS, SKEW_SHARE = 200_000, 0.9  # the skewed scatter-add input
-# generation, the attention families: GEN_BATCH seeded prompts of
+# generation, every family: GEN_BATCH seeded prompts of
 # GEN_PROMPT tokens (whisper: GEN_AUDIO_PROMPT decoder tokens after
 # AUDIO_FRAMES frames), GEN_NEW greedy tokens each
 GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_AUDIO_PROMPT = 8, 128, 32, 64
@@ -2048,6 +2055,24 @@ def generate_launcher_phase() -> dict:
             "req0": lines[1]}
 
 
+def _cache_bytes(cache, batch: dict) -> int:
+    """Bytes of every tensor leaf of a serving cache (KV caches, recurrent
+    states, conv windows), except the batch's own tensors that it keeps
+    (the VLM's ``vision_embed``)."""
+    import torch
+    inputs = {id(v) for v in batch.values()}
+
+    def walk(t):
+        if isinstance(t, dict):
+            return sum(walk(v) for v in t.values())
+        if isinstance(t, (tuple, list)):
+            return sum(walk(v) for v in t)
+        if isinstance(t, torch.Tensor) and id(t) not in inputs:
+            return t.numel() * t.element_size()
+        return 0
+    return walk(cache)
+
+
 def generate_family(cfg, prompt: int) -> dict:
     """``ServeEngine.generate`` on the card (bf16 parameters from a seed)
     of GEN_BATCH seeded prompts of ``prompt`` tokens, GEN_NEW new tokens
@@ -2093,9 +2118,7 @@ def generate_family(cfg, prompt: int) -> dict:
         split = torch.stack(out[:GEN_NEW], 1).cpu().numpy()
         trace = profiled_step(lambda: model.decode_step(
             cache, {"tokens": tok[:, None]}), decode_s / GEN_NEW)
-        cache_bytes = sum(t.numel() * t.element_size() for t in (
-            *cache.get("kv", ()), *(cache[k] for k in ("k", "v", "xk", "xv")
-                                    if k in cache)))
+        cache_bytes = _cache_bytes(cache, batch)
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
     head = model._head() if hasattr(model, "_head") else model.lm_head
     x = torch.randn((GEN_BATCH, cfg.d_model), device="cuda").to(head.dtype)
@@ -2128,8 +2151,11 @@ def generate_family(cfg, prompt: int) -> dict:
 def generate_phase() -> dict:
     """Generation on the card, each model freeing the card before the next:
     qwen3-0.6b whole through the launcher, then in process qwen3-0.6b
-    whole, the MoE cut to MOE_LAYERS, the VLM to VLM_LAYERS and
-    whisper-small whole with AUDIO_FRAMES frames."""
+    whole, the MoE cut to MOE_LAYERS, the VLM to VLM_LAYERS, whisper-small
+    whole with AUDIO_FRAMES frames, and the recurrent families whole at
+    the published chunk: zamba2-7b (81 Mamba2 layers, 14 applications of
+    the shared attention block) and xlstm-350m (18 mLSTM and 6 sLSTM
+    blocks)."""
     from repro_torch.configs.base import get_arch
     out = {"launcher": generate_launcher_phase()}
     for fam, cfg, prompt in (
@@ -2139,14 +2165,16 @@ def generate_phase() -> dict:
              GEN_PROMPT),
             ("vlm", get_arch(VLM_ARCH).replace(n_layers=VLM_LAYERS),
              GEN_PROMPT),
-            ("audio", get_arch(AUDIO_ARCH), GEN_AUDIO_PROMPT)):
+            ("audio", get_arch(AUDIO_ARCH), GEN_AUDIO_PROMPT),
+            ("hybrid", get_arch(HYBRID_ARCH), GEN_PROMPT),
+            ("ssm", get_arch(XLSTM_ARCH), GEN_PROMPT)):
         out[fam] = generate_family(cfg, prompt)
     return out
 
 
 def generate_parity_phase() -> dict:
-    """Each attention family in f32 at its least depth (dense PARITY_LAYERS,
-    the rest their FAMILY_PARITY cut), one seed, 2 prompts of
+    """Each family in f32 at its least depth (dense PARITY_LAYERS, the
+    rest their FAMILY_PARITY cut), one seed, 2 prompts of
     GEN_PARITY_PROMPT tokens, on the card and on the CPU: ``prefill`` of
     all the tokens, ``prefill`` of all but the last then one
     ``decode_step`` of it, and GEN_PARITY_NEW greedy tokens through
@@ -2160,8 +2188,7 @@ def generate_parity_phase() -> dict:
     from repro_torch.models import params as P
     from repro_torch.models.api import build_model
     from repro_torch.serve.engine import ServeEngine
-    cases = {"dense": (ARCH, {"n_layers": PARITY_LAYERS}),
-             **{f: FAMILY_PARITY[f] for f in ("moe", "vlm", "audio")}}
+    cases = {"dense": (ARCH, {"n_layers": PARITY_LAYERS}), **FAMILY_PARITY}
     out = {}
     for fam, (arch, cut) in cases.items():
         cfg = get_arch(arch).replace(dtype="float32", **cut)
@@ -2619,7 +2646,7 @@ def main() -> int:
             get_arch(XLSTM_ARCH), FAMILY_STEPS, SSM_TRAIN_SEQ)})
         emit({"ssm_scan": ssm_scan_phase()})
 
-        # -- generation: the attention families on the card, then card vs CPU
+        # -- generation: every family on the card, then card vs CPU
         emit({"generate": generate_phase()})
         emit({"generate_parity": generate_parity_phase()})
         for e in entries:  # the launches of the ingest phase's float twin

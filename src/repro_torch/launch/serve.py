@@ -5,8 +5,8 @@ Batched generation (no mode word) serves ``--requests`` random prompts of
 ``--prompt-len`` tokens, ``--new-tokens`` greedy tokens each, coalesced
 into batches of ``--max-batch``, with parameters drawn from a seed in
 ``cfg.dtype``.  It runs on the card by default (``--device cuda``; a host
-without one raises) and on the CPU with ``--device cpu``; the SSM and
-hybrid families are not served yet (``ROADMAP.md`` §1 item 1)::
+without one raises) and on the CPU with ``--device cpu``, for every model
+family (the SSM and hybrid ones carry their recurrent states)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         [--reduced] [--requests 6] [--prompt-len 16] [--new-tokens 8] \
@@ -414,10 +414,6 @@ def _generate_main(argv):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if cfg.family in ("ssm", "hybrid"):
-        sys.exit(f"repro_torch.launch.serve: serving the {cfg.family} "
-                 f"family ({args.arch}) is not ported yet (ROADMAP.md §1 "
-                 f"item 1)")
     import numpy as np
     import torch
 

@@ -43,18 +43,18 @@ def build_model(cfg: ModelConfig, *, device="cpu", dtype=None):
     * ``decode_step(cache, batch) -> (logits, cache)``, the cache written
       in place.
 
-    Every family trains; the SSM and hybrid families' serving methods
-    raise ``NotImplementedError`` (``ROADMAP.md`` §1 item 1)."""
+    Every family trains and serves."""
     return model_class(cfg)(cfg, device=device, dtype=dtype)
 
 
 def cache_init(model, cfg: ModelConfig, batch_size: int, max_len: int, *,
                device) -> dict:
-    """An allocated zero cache on ``device``, in ``model.cache_defs``'s
-    layout (for whisper ``max_len`` is the encoder length): KV caches in
-    ``cfg.dtype``, the SSM states ``h``/``c``/``n``/``hp`` f32, and
-    ``"len"`` the Python int 0 that the port's caches count positions
-    with."""
+    """An allocated cache on ``device``, in ``model.cache_defs``'s
+    layout (for whisper ``max_len`` is the encoder length): KV caches and
+    the Mamba2 conv windows in ``cfg.dtype``, the SSM states
+    ``h``/``c``/``n``/``hp`` f32, each leaf filled as its ``init`` says
+    (the sLSTM's ``n`` with ones), and ``"len"`` the Python int 0 that the
+    port's caches count positions with."""
     defs = model.cache_defs(batch_size, max_len)
 
     def mk(path, d):

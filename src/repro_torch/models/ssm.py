@@ -1,13 +1,15 @@
 """SSM-family models: Mamba2 (SSD), xLSTM (mLSTM + sLSTM), the Zamba2 hybrid.
 
-Port of :mod:`repro.models.ssm`, train mode.  Every recurrence shares one
-chunked linear-RNN core (the SSD duality): state
+Port of :mod:`repro.models.ssm`: training, and serving through
+``prefill``/``decode_step`` over the reference's cache layout.  Every
+recurrence shares one chunked linear-RNN core (the SSD duality): state
 ``H_t = a_t * H_{t-1} + v_t (x) k_t``, readout ``y_t = H_t . q_t``,
 computed chunk-parallel: quadratic attention-like products inside a chunk,
 the state carried from chunk to chunk by a Python loop (the reference's
 ``lax.scan``), each chunk's body under ``torch.utils.checkpoint``
 (non-reentrant) as the reference's ``jax.checkpoint``.  The sLSTM is a
-sequential loop over time on an f32 carry.
+sequential loop over time on an f32 carry.  A decode step is the same
+core at one step (a chunk of length 1), as in the reference.
 
 Two rules of :func:`linear_rnn_chunked` differ from a literal transcription:
 
@@ -28,13 +30,16 @@ Two rules of :func:`linear_rnn_chunked` differ from a literal transcription:
   a (b, i, h, p, n) intermediate: 3.76 GB per chunk at zamba2's width).
 
 The blocks keep the reference's ``state=None`` argument and
-``(x, new_state)`` result; ``prefill``, ``decode_step`` and ``cache_defs``
-(serving, ``ROADMAP.md`` §1 item 1) are not ported yet and raise.
-Parameter names and shapes are the reference's: ``layers.<i>.<name>``,
-``mlstm.<i>.<name>`` and ``slstm.<i>.<name>`` are its stacked groups
-(``models.params``), and the
-hybrid's ``shared_attn`` is the port's :class:`~repro_torch.models.lm.Block`
-on the same config, one parameter set applied before every group.
+``(x, new_state)`` result.  Serving keeps the attention families' two
+deviations (``ROADMAP.md`` §3): ``decode_step`` copies each layer's new
+state into the cache it is given, in place, and returns that cache; and
+the hybrid raises ``ValueError`` on a full attention cache (a pure
+recurrent model has no positional bound).  The cache's ``"len"`` is a
+Python int.  Parameter names and shapes are the reference's:
+``layers.<i>.<name>``, ``mlstm.<i>.<name>`` and ``slstm.<i>.<name>`` are
+its stacked groups (``models.params``), and the hybrid's ``shared_attn``
+is the port's :class:`~repro_torch.models.lm.Block` on the same config,
+one parameter set applied before every group.
 """
 from __future__ import annotations
 
@@ -46,12 +51,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import next_token_xent, rms_norm
+from repro_torch.models.layers import logits_f32, next_token_xent, rms_norm
 from repro_torch.models.lm import Block, _param, _params
 from repro_torch.models.params import ParamDef, torch_dtype
-
-_SERVING = ("not ported yet (serving of the SSM and hybrid families: "
-            "ROADMAP.md §1 item 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -320,7 +322,8 @@ class SLSTMBlock(_SSMBlock):
 
 class _RecurrentLM(nn.Module):
     """What the two SSM models share: the embedding, the final norm, the
-    untied head, the loss and the serving entry points that raise.
+    untied head, the loss, and the serving entry points over the
+    subclass's ``_empty_cache`` and ``_backbone``.
     Parameters are allocated uninitialised on ``device`` in ``dtype``
     (default ``cfg.dtype``), as :class:`~repro_torch.models.lm.
     TransformerLM`'s are."""
@@ -340,9 +343,21 @@ class _RecurrentLM(nn.Module):
                 "final_norm": ParamDef((D,), (None,), "zeros"),
                 "lm_head": ParamDef((D, V), ("fsdp", "vocab"))}
 
-    def _remat(self, blk: nn.Module, x: torch.Tensor) -> torch.Tensor:
-        """``blk(x)``'s output, checkpointed when ``cfg.remat``."""
-        if self.cfg.remat:
+    def _embed_in(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embed[tokens.long()].to(torch_dtype(self.cfg.dtype))
+
+    def _layer(self, blk: nn.Module, x: torch.Tensor, states=None,
+               i: int = 0, remat: bool = True) -> torch.Tensor:
+        """``blk(x)``'s output.  In training (``states`` None) it is
+        checkpointed when ``remat`` and ``cfg.remat``.  In serving
+        ``states`` maps names to layer-stacked state tensors: ``blk``
+        reads row ``i`` of each, and its new state is copied into that
+        row after it has run."""
+        if states is not None:
+            x, new = blk(x, {k: v[i] for k, v in states.items()})
+            for k, v in new.items():
+                states[k][i].copy_(v)
+        elif remat and self.cfg.remat:
             x, _ = checkpoint(blk, x, use_reentrant=False,
                               preserve_rng_state=False)
         else:
@@ -351,30 +366,58 @@ class _RecurrentLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Mean next-token cross-entropy of ``tokens`` (B, S)."""
-        cfg = self.cfg
-        x = self.embed[tokens.long()].to(torch_dtype(cfg.dtype))
-        x = rms_norm(self._backbone(x), self.final_norm, cfg.norm_eps)
+        x = rms_norm(self._backbone(self._embed_in(tokens)), self.final_norm,
+                     self.cfg.norm_eps)
         return next_token_xent(x, self.lm_head, tokens)
 
     def loss_fn(self, batch: dict) -> torch.Tensor:
         return self(batch["tokens"])
 
-    def prefill(self, *args, **kwargs):
-        raise NotImplementedError("prefill: " + _SERVING)
+    # -- serving -------------------------------------------------------------
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits (B, V) of the last hidden states ``x`` (B, D)."""
+        return logits_f32(rms_norm(x, self.final_norm, self.cfg.norm_eps),
+                          self.lm_head)
 
-    def decode_step(self, *args, **kwargs):
-        raise NotImplementedError("decode_step: " + _SERVING)
+    @torch.inference_mode()
+    def prefill(self, batch: dict, max_len: int | None = None):
+        """``(logits (B, V) f32 of the last position, cache)`` of the
+        prompt ``batch["tokens"]`` (B, S): every layer's state starts at
+        the reference's zero state and its state after the prompt is
+        written into the cache (and, in the hybrid, each application's
+        keys and values into a cache of ``max(S, max_len)`` positions)."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = self._embed_in(tokens)
+        cache = self._empty_cache(B, max(S, max_len or 0), x.device)
+        x = self._backbone(x, cache)
+        cache["len"] = S
+        return self._logits(x[:, -1]), cache
 
-    def cache_defs(self, *args, **kwargs):
-        raise NotImplementedError("cache_defs: " + _SERVING)
+    @torch.inference_mode()
+    def decode_step(self, cache: dict, batch: dict):
+        """One token for every sequence, ``batch["tokens"]`` (B, 1):
+        ``(logits (B, V) f32, cache)``.  Every layer's new state is copied
+        into ``cache`` in place, and ``cache`` itself is returned with
+        ``"len"`` one more.  Only the hybrid's attention cache can be
+        full, and then it raises ``ValueError``: a recurrent state has no
+        positional bound."""
+        clen = int(cache["len"])
+        if "attn_k" in cache and clen >= cache["attn_k"].shape[2]:
+            raise ValueError(f"decode_step: the cache is full ({clen} of "
+                             f"{cache['attn_k'].shape[2]} positions)")
+        x = self._backbone(self._embed_in(batch["tokens"]), cache, clen)
+        cache["len"] = clen + 1
+        return self._logits(x[:, -1]), cache
 
 
 class MambaLM(_RecurrentLM):
     """Mamba2 LM; with ``cfg.attn_every`` > 0 it is the Zamba2 hybrid: one
     *shared* attention+MLP block (a single parameter set, ``shared_attn``)
     applied before every group of ``attn_every`` Mamba2 layers, the last
-    group partial when ``attn_every`` does not divide ``n_layers``.
-    ``cfg.remat`` checkpoints each Mamba2 layer, never the shared block."""
+    group partial when ``attn_every`` does not divide ``n_layers``, each
+    application with its own KV cache in serving.  ``cfg.remat``
+    checkpoints each Mamba2 layer, never the shared block."""
 
     def __init__(self, cfg: ModelConfig, *, device="cpu", dtype=None):
         super().__init__(cfg, device, dtype)
@@ -413,14 +456,72 @@ class MambaLM(_RecurrentLM):
             }
         return defs
 
-    def _backbone(self, x: torch.Tensor) -> torch.Tensor:
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for lo, hi in self.groups:
+    def _backbone(self, x: torch.Tensor, cache: dict | None = None,
+                  cache_len: int | None = None) -> torch.Tensor:
+        """Every group over ``x``.  In serving ``cache`` is read and
+        written in place: application ``g`` of the shared block writes
+        ``attn_k[g]``/``attn_v[g]`` (the prompt's rows in prefill,
+        ``cache_len`` None; row ``cache_len`` in decode), and Mamba2
+        layer ``i`` row ``i`` of ``cache["ssm"]``."""
+        B, S, _ = x.shape
+        positions = (torch.arange(S, device=x.device)[None, :]
+                     if cache_len is None else
+                     torch.full((B, 1), cache_len, device=x.device))
+        states = None if cache is None else cache["ssm"]
+        for g, (lo, hi) in enumerate(self.groups):
             if self.cfg.attn_every:
-                x, _ = self.shared_attn(x, positions)
+                kv = (None if cache is None
+                      else (cache["attn_k"][g], cache["attn_v"][g]))
+                x, _ = self.shared_attn(x, positions, kv, cache_len)
             for i in range(lo, hi):
-                x = self._remat(self.layers[i], x)
+                x = self._layer(self.layers[i], x, states, i)
         return x
+
+    def _empty_cache(self, B: int, max_len: int, device) -> dict:
+        """The cache a prefill starts from: the reference's zero states
+        (``_zero_states``: ``h`` f32, ``conv`` in ``cfg.dtype``) and the
+        hybrid's attention caches, zeros in ``cfg.dtype`` at ``max_len``
+        positions."""
+        cfg = self.cfg
+        H, P, N = cfg.n_ssm_heads, cfg.d_inner // cfg.n_ssm_heads, cfg.ssm_state
+        L, K, DI = cfg.n_layers, cfg.ssm_conv, cfg.d_inner
+        dt = torch_dtype(cfg.dtype)
+        cache = {"ssm": {
+            "h": torch.zeros((L, B, H, P, N), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((L, B, K - 1, DI), dtype=dt, device=device)}}
+        if cfg.attn_every:
+            shape = (self.n_attn_apps, B, max_len, cfg.n_kv_heads, cfg.hd)
+            cache["attn_k"], cache["attn_v"] = (
+                torch.zeros(shape, dtype=dt, device=device) for _ in range(2))
+        return cache
+
+    def cache_defs(self, batch_size: int, max_len: int) -> dict:
+        """The reference's cache layout: ``ssm`` ``h`` (L, B, H, P, N) and
+        ``conv`` (L, B, K-1, DI); the hybrid adds ``attn_k`` and
+        ``attn_v``, each (applications, B, max_len, KVH, hd)."""
+        cfg = self.cfg
+        H, P, N = cfg.n_ssm_heads, cfg.d_inner // cfg.n_ssm_heads, cfg.ssm_state
+        L, K, DI = cfg.n_layers, cfg.ssm_conv, cfg.d_inner
+        defs = {
+            "ssm": {
+                "h": ParamDef((L, batch_size, H, P, N),
+                              ("layers", "batch", None, "ssm_inner",
+                               "ssm_state"), "zeros"),
+                "conv": ParamDef((L, batch_size, K - 1, DI),
+                                 ("layers", "batch", None, "ssm_inner"),
+                                 "zeros"),
+            },
+            "len": ParamDef((), (), "zeros"),
+        }
+        if cfg.attn_every:
+            A, KVH, hd = self.n_attn_apps, cfg.n_kv_heads, cfg.hd
+            kv = ParamDef((A, batch_size, max_len, KVH, hd),
+                          (None, "batch", "kv_seq", "kv_heads", "head_dim"),
+                          "zeros")
+            defs["attn_k"] = kv
+            defs["attn_v"] = kv
+        return defs
 
 
 class XLSTMLM(_RecurrentLM):
@@ -428,7 +529,10 @@ class XLSTMLM(_RecurrentLM):
     mLSTM blocks then one sLSTM block; ``cfg.remat`` checkpoints only the
     mLSTM blocks.  As in the reference, when ``slstm_every`` does not
     divide ``n_layers`` the last mLSTM blocks are defined but never run
-    (their gradients are zero)."""
+    (their gradients are zero), and ``cache_defs`` declares a state for
+    each while ``prefill`` carries only those that run (``ROADMAP.md``
+    §3): ``decode_step`` then writes the rows that run of whichever cache
+    it is given."""
 
     def __init__(self, cfg: ModelConfig, *, device="cpu", dtype=None):
         super().__init__(cfg, device, dtype)
@@ -450,11 +554,56 @@ class XLSTMLM(_RecurrentLM):
             defs["slstm"] = slstm_defs(self.cfg, self.n_slstm)
         return defs
 
-    def _backbone(self, x: torch.Tensor) -> torch.Tensor:
+    def _backbone(self, x: torch.Tensor, cache: dict | None = None,
+                  cache_len: int | None = None) -> torch.Tensor:
+        """Every group over ``x``.  In serving mLSTM block ``i`` reads and
+        writes row ``i`` of ``cache["ssm"]["m"]`` and sLSTM block ``g``
+        row ``g`` of ``cache["ssm"]["s"]``, in place."""
+        m = s = None
+        if cache is not None:
+            m, s = cache["ssm"]["m"], cache["ssm"]["s"]
         for g in range(max(self.n_slstm, 1)):
             lo = g * self.per_group
             for i in range(lo, min(lo + self.per_group, self.n_mlstm)):
-                x = self._remat(self.mlstm[i], x)
+                x = self._layer(self.mlstm[i], x, m, i)
             if self.n_slstm:
-                x, _ = self.slstm[g](x)
+                x = self._layer(self.slstm[g], x, s, g, remat=False)
         return x
+
+    def _empty_cache(self, B: int, max_len: int, device) -> dict:
+        """The cache a prefill starts from, the reference's zero states:
+        f32, ``n`` at ones, the mLSTM state only for the blocks that run (``n_slstm *
+        (slstm_every - 1)`` of them, or all without sLSTM blocks)."""
+        cfg = self.cfg
+        H = cfg.n_heads
+        N, hd = cfg.d_inner // H, cfg.d_model // H
+        n_run = (min(self.n_slstm * self.per_group, self.n_mlstm)
+                 if self.n_slstm else self.n_mlstm)
+        f32 = dict(dtype=torch.float32, device=device)
+        s_shape = (self.n_slstm, B, H, hd)
+        return {"ssm": {
+            "m": {"h": torch.zeros((n_run, B, H, N + 1, N), **f32)},
+            "s": {"c": torch.zeros(s_shape, **f32),
+                  "n": torch.ones(s_shape, **f32),
+                  "hp": torch.zeros(s_shape, **f32)}}}
+
+    def cache_defs(self, batch_size: int, max_len: int) -> dict:
+        """The reference's cache layout: ``ssm`` ``m`` ``h`` (n_mlstm, B,
+        H, N+1, N) and ``s`` ``c``/``n``/``hp`` (n_slstm, B, H, hd), ``n``
+        initialised to ones."""
+        cfg = self.cfg
+        H = cfg.n_heads
+        N, hd = cfg.d_inner // H, cfg.d_model // H
+        return {
+            "ssm": {
+                # dim 3 is N+1 (the normalizer channel): never sharded
+                "m": {"h": ParamDef((self.n_mlstm, batch_size, H, N + 1, N),
+                                    ("layers", "batch", None, None, None),
+                                    "zeros")},
+                "s": {k: ParamDef((self.n_slstm, batch_size, H, hd),
+                                  ("layers", "batch", None, None),
+                                  "ones" if k == "n" else "zeros")
+                      for k in ("c", "n", "hp")},
+            },
+            "len": ParamDef((), (), "zeros"),
+        }

@@ -884,13 +884,13 @@ def test_ssm_family_train_step_on_card(dev, arch):
     assert gc == pytest.approx(g0, rel=2e-2)
 
 
-def _f32_model(arch, device):
-    """A reduced model of ``arch`` in f32, its weights from one seed on the
-    CPU."""
+def _f32_model(arch, device, **kw):
+    """A reduced model of ``arch`` in f32 (``kw`` over the config), its
+    weights from one seed on the CPU."""
     from repro_torch.configs.base import get_arch, reduced
     from repro_torch.models import params as P
     from repro_torch.models.api import build_model
-    cfg = reduced(get_arch(arch))
+    cfg = reduced(get_arch(arch)).replace(**kw)
     tree = P.init_params(build_model(cfg, device="meta").param_defs(),
                          torch.Generator().manual_seed(0), cfg.dtype, "cpu")
     return cfg, P.from_reference(build_model(cfg, device=device), tree)
@@ -936,6 +936,66 @@ def test_generation_card_matches_cpu(dev, arch):
         torch.testing.assert_close(card_leaves[k], want, rtol=0,
                                    atol=1e-4 * want.abs().max().item(),
                                    msg=k)
+
+
+def _tensor_leaves(tree, prefix=""):
+    """``{path: a copy on the CPU}`` of each tensor of a nested cache."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_tensor_leaves(v, f"{prefix}{k}/"))
+        return out
+    if isinstance(tree, torch.Tensor):
+        return {prefix[:-1]: tree.to("cpu", copy=True)}
+    return {}
+
+
+@pytest.mark.parametrize("arch,kw", [("zamba2-7b", {"n_layers": 2}),
+                                     ("xlstm-350m", {"n_layers": 4})],
+                         ids=["hybrid", "ssm"])
+def test_recurrent_generation_card_matches_cpu(dev, arch, kw):
+    """The SSM and hybrid families, reduced, in f32, at the smoke's parity
+    cuts (zamba2 2 layers: one attention application; xlstm 4 blocks: an
+    sLSTM runs): ``prefill`` of 4 x 12 tokens (``max_len`` 16; a chunk of
+    8 and a padded one) and 3 ``decode_step``s on the card give the CPU's
+    logits within 1e-4 of the largest |logit| and every cache leaf (scan
+    states, conv windows, sLSTM carries, attention caches) within 1e-4 of
+    its largest entry; then on the card the hybrid's full attention cache
+    raises ``ValueError``, and the xLSTM decodes past ``max_len``."""
+    res = []
+    for device in (dev, torch.device("cpu")):
+        cfg, model = _f32_model(arch, device, **kw)
+        batch = _family_batch(cfg, device, rows=4, seq=12)
+        logits, cache = model.prefill(batch, max_len=16)
+        steps = [logits]
+        for i in range(3):
+            tok = batch["tokens"][:, i:i + 1]
+            logits, cache = model.decode_step(cache, {"tokens": tok})
+            steps.append(logits)
+        res.append(([s.cpu() for s in steps], _tensor_leaves(cache),
+                    cache["len"]))
+        if device.type == "cuda":
+            tok = batch["tokens"][:, :1]
+            if cfg.attn_every:
+                with pytest.raises(ValueError, match="cache is full"):
+                    for _ in range(2):
+                        model.decode_step(cache, {"tokens": tok})
+            else:
+                for _ in range(2):
+                    logits, cache = model.decode_step(cache, {"tokens": tok})
+                assert cache["len"] == 17 and torch.isfinite(logits).all()
+    (card, card_leaves, card_len), (cpu, cpu_leaves, cpu_len) = res
+    assert card_len == cpu_len == 15
+    for got, want in zip(card, cpu):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * want.abs().max().item())
+    assert sorted(card_leaves) == sorted(cpu_leaves)
+    for k, want in cpu_leaves.items():
+        assert card_leaves[k].dtype == want.dtype, k
+        torch.testing.assert_close(
+            card_leaves[k], want, rtol=0,
+            atol=1e-4 * max(want.abs().max().item(), 1e-30), msg=k)
 
 
 def test_logits_f32_card_matches_cpu(dev):
