@@ -187,6 +187,22 @@ read just after:
     ``decode_step`` within 1e-4 of the largest |logit| on the card, the
     card against the CPU within 1e-3, and the share of 4 greedy tokens
     equal on both.
+14. The dry-run (no card: each cell a ``python -m repro_torch.launch.dryrun``
+    process on the CPU, all started together).  ``dryrun`` — qwen3-0.6b
+    ``train_4k`` on the fake 16x16 mesh and yi-6b ``train_4k`` on 2x16x16,
+    and while the phase is under DRYRUN_BUDGET_S llama-3.2-vision-11b
+    ``decode_32k`` and whisper-small ``prefill_32k`` on 16x16: per-device
+    memory, roofline terms and dominant term, collectives and trace
+    seconds.  ``dryrun_check`` — the dry-run's prediction for qwen3-0.6b
+    whole at 8 x 128 on a 1x1 mesh (made beside ``dryrun``) against that
+    step on the card on a one-rank NCCL group: the DTensor step's loss
+    within 1e-5 of the plain step's, ``FlopCounterMode``'s FLOPs of the
+    plain step equal to the predicted dot FLOPs, the peak within 15% of
+    the predicted one, the parameters' and moments' bytes equal to the
+    predicted argument bytes less the batch and the int32 step, and the
+    median step no faster than the roofline bound.  ``phase_seconds``
+    gives each phase's seconds.  ``python3 chip_smoke.py --dryrun-only``
+    runs these two phases alone (and is not the smoke).
 
 Every line before the last is one JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero without
@@ -255,13 +271,36 @@ GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_AUDIO_PROMPT = 8, 128, 32, 64
 GEN_PARITY_PROMPT, GEN_PARITY_NEW = 16, 4
 GEN_TOL_STEP = 1e-4    # prefill(S-1) + decode against prefill(S), the card
 GEN_TOL_DEVICE = 1e-3  # the card against the CPU
+# the dry-run at full width on fake 256- and 512-rank meshes (no card):
+# (arch, shape, multi-pod, required); a cell that is not required runs
+# only while the phase is under DRYRUN_BUDGET_S
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False, True),
+                ("yi-6b", "train_4k", True, True),
+                ("llama-3.2-vision-11b", "decode_32k", False, False),
+                ("whisper-small", "prefill_32k", False, False))
+DRYRUN_BUDGET_S, DRYRUN_TIMEOUT_S = 120, 600
+# dryrun_check: the dry-run's prediction for qwen3-0.6b whole at the train
+# phase's batch on a (1, 1) mesh, against the step on the card
+CHECK_LOSS_TOL = 1e-5   # the DTensor step's loss against the plain step's
+CHECK_PEAK_RTOL = 0.15  # max_memory_allocated against the predicted peak
+CHECK_STEPS = 5         # timed DTensor steps after the checked one
 
 
 class SmokeFailure(RuntimeError):
     pass
 
 
+_T0 = time.perf_counter()
+_PHASE_S: dict = {}
+
+
 def emit(obj) -> None:
+    """Print one phase's line; note the seconds since the previous one."""
+    global _T0
+    now = time.perf_counter()
+    for key in obj:
+        _PHASE_S[key] = now - _T0
+    _T0 = now
     print(json.dumps(obj), flush=True)
 
 
@@ -2172,6 +2211,256 @@ def generate_phase() -> dict:
     return out
 
 
+def _cpu_env() -> dict:
+    """The environment of a subprocess that must not touch the card."""
+    import os
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                CUDA_VISIBLE_DEVICES="")
+
+
+def dryrun_phase() -> dict:
+    """``python -m repro_torch.launch.dryrun`` on each DRYRUN_CELLS cell,
+    all started together, each in its own process on the CPU: memory,
+    roofline terms, dominant term and trace seconds of each.  A cell that
+    is not required is stopped once the phase passes DRYRUN_BUDGET_S."""
+    t0 = time.perf_counter()
+    procs = []
+    for arch, shape, multi, required in DRYRUN_CELLS:
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                "--arch", arch, "--shape", shape] + (
+                    ["--multipod"] if multi else [])
+        procs.append((arch, shape, multi, required, subprocess.Popen(
+            argv, cwd=ROOT, env=_cpu_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    try:
+        cells = _dryrun_results(procs, t0)
+    finally:
+        for *_, proc in procs:  # stops any left after a failure
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return {"cells": cells, "seconds": time.perf_counter() - t0,
+            "budget_s": DRYRUN_BUDGET_S}
+
+
+def _dryrun_results(procs, t0: float) -> list:
+    cells = []
+    for arch, shape, multi, required, proc in procs:
+        left = (DRYRUN_TIMEOUT_S if required else DRYRUN_BUDGET_S) - (
+            time.perf_counter() - t0)
+        cell = {"arch": arch, "shape": shape,
+                "mesh": "2x16x16" if multi else "16x16"}
+        try:
+            out, err = proc.communicate(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            require(not required, f"dry-run {arch} {shape}: past "
+                                  f"{DRYRUN_TIMEOUT_S} s")
+            cell["cut"] = f"stopped: the phase passed {DRYRUN_BUDGET_S} s"
+            cells.append(cell)
+            continue
+        require(proc.returncode == 0,
+                f"dry-run {arch} {shape} failed: {err[-2000:]}")
+        res = json.loads(out)
+        rf, mem = res["roofline"], res["memory"]
+        require(rf["flops_per_chip"] > 0 and rf["collective_bytes_per_chip"] > 0
+                and mem["peak_per_device_bytes"] >= mem["argument_bytes"] > 0,
+                f"dry-run {arch} {shape}: empty result {res}")
+        cell.update({
+            "n_chips": res["n_chips"], "microbatches": res["microbatches"],
+            "memory": mem, "roofline": {k: rf[k] for k in (
+                "compute_s", "memory_s", "collective_s", "dominant",
+                "flops_per_chip", "hbm_bytes_per_chip",
+                "collective_bytes_per_chip", "useful_fraction",
+                "mfu_bound")},
+            "collectives": res["collectives"], "op_cost": res["op_cost"],
+            "trace_s": res["timings"]["trace_s"], "torch": res["torch"]})
+        cells.append(cell)
+    return cells
+
+
+_PREDICT = """
+import json, sys
+import torch
+import repro_torch.configs.base as base
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+base.SHAPES["smoke_train"] = base.ShapeConfig("smoke_train", {seq}, {batch},
+                                              "train")
+res = dryrun.dryrun_cell({arch!r}, "smoke_train", mesh=make_host_mesh(1, 1),
+                         moment_dtype=torch.float32)
+print(json.dumps(res))
+"""
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def dryrun_phases() -> None:
+    """``dryrun``, then ``dryrun_check``, whose prediction runs beside the
+    first; no process outlives them."""
+    predict = start_prediction()
+    try:
+        emit({"dryrun": dryrun_phase()})
+        emit({"dryrun_check": dryrun_check_phase(predict)})
+    finally:
+        if predict.poll() is None:
+            predict.kill()
+            predict.communicate()
+
+
+def start_prediction() -> subprocess.Popen:
+    """The dry-run of dryrun_check's cell, started in its own process on
+    the CPU (it runs beside the ``dryrun`` phase)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _PREDICT.format(
+            seq=TRAIN_SEQ, batch=TRAIN_BATCH, arch=ARCH)],
+        cwd=ROOT, env=_cpu_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def dryrun_check_phase(predict: subprocess.Popen) -> dict:
+    """The dry-run's prediction for qwen3-0.6b whole at TRAIN_BATCH x
+    TRAIN_SEQ (bf16 parameters, f32 moments) on a (1, 1) mesh, made on a
+    fake one-rank group in ``predict`` (:func:`start_prediction`), against
+    the same step on the card
+    on a real one-rank NCCL group: the DTensor step's loss against the
+    plain step's; ``FlopCounterMode``'s FLOPs of the plain step (the same
+    local ops) against the predicted dot FLOPs; the DTensor step's peak
+    ``max_memory_allocated`` against the predicted peak, and its
+    parameters' and moments' bytes against the predicted argument bytes
+    less the batch and the int32 step; the median of CHECK_STEPS steps
+    against the roofline's ``bound_s``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as P
+    from repro_torch.models.api import rules_for
+    from repro_torch.sharding.specs import from_local, placements
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    t0 = time.perf_counter()
+    out, err = predict.communicate(timeout=DRYRUN_TIMEOUT_S)
+    require(predict.returncode == 0, f"prediction failed: {err[-2000:]}")
+    pred = json.loads(out.strip().splitlines()[-1])
+    wait_s = time.perf_counter() - t0
+
+    cfg = get_arch(ARCH)
+    tokens = torch.from_numpy(TokenPipeline(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH).batch_at(0)).to(
+            "cuda", torch.int32)
+    batch_bytes = _bytes([tokens])
+    # the plain step, its dot FLOPs counted
+    model = _init_model(cfg, "cuda", SEED_FLOAT)
+    opt = init_opt_state(dict(model.named_parameters()))
+    with FlopCounterMode(display=False) as fc:
+        plain = make_train_step(model, AdamWConfig())(opt, {"tokens": tokens})
+    plain_loss, plain_flops = float(plain["loss"]), fc.get_total_flops()
+    del model, opt, plain
+    free_card()
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        rules = rules_for(cfg, mesh, "train")
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = _init_model(cfg, "cuda", SEED_FLOAT)
+        specs = P.specs(model.param_defs(), rules)
+        for name, p in list(model.named_parameters()):
+            *path, leaf = name.split(".")
+            setattr(model.get_submodule(".".join(path)), leaf,
+                    torch.nn.Parameter(from_local(
+                        p.detach(), mesh, placements(specs[name], mesh),
+                        tuple(p.shape))))
+        params = dict(model.named_parameters())
+        opt = init_opt_state(params)
+        held = _bytes(t.to_local() for t in [*params.values(),
+                                             *opt["m"].values(),
+                                             *opt["v"].values()])
+        batch = {"tokens": from_local(tokens, mesh, placements(
+            _batch_spec(cfg, rules), mesh),
+            tuple(tokens.shape))}
+        step = make_train_step(model, AdamWConfig(), mesh=mesh, rules=rules)
+        m = step(opt, batch)
+        loss = m["loss"]
+        loss = float(loss.full_tensor() if isinstance(loss, DTensor) else loss)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base_bytes
+        times = []
+        for _ in range(CHECK_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        del model, opt, params, batch, m
+    finally:
+        dist.destroy_process_group()
+        free_card()
+    mem, rf = pred["memory"], pred["roofline"]
+    median = statistics.median(times)
+    res = {
+        "arch": ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "mesh": "1x1",
+        "predict_trace_s": pred["timings"]["trace_s"],
+        "predict_wait_s": wait_s, "moment_dtype": pred["moment_dtype"],
+        "loss_plain": plain_loss, "loss_dtensor": loss,
+        "loss_diff": abs(loss - plain_loss), "loss_tol": CHECK_LOSS_TOL,
+        "flops_counted_plain": plain_flops,
+        "dot_flops_predicted": pred["op_cost"]["dot_flops"],
+        "flops_predicted": pred["op_cost"]["flops"],
+        "peak_bytes": peak, "peak_bytes_predicted": mem["peak_per_device_bytes"],
+        "peak_ratio": peak / mem["peak_per_device_bytes"],
+        "peak_rtol": CHECK_PEAK_RTOL,
+        "param_moment_bytes": held,
+        "argument_bytes_predicted": mem["argument_bytes"],
+        "batch_bytes": batch_bytes,
+        "step_s": times, "median_step_s": median,
+        "bound_s": max(rf["compute_s"], rf["memory_s"], rf["collective_s"]),
+        "roofline": {k: rf[k] for k in ("compute_s", "memory_s",
+                                        "collective_s", "dominant")},
+        "seconds": time.perf_counter() - t0}
+    res["step_over_bound"] = median / res["bound_s"]
+    require(res["loss_diff"] <= CHECK_LOSS_TOL,
+            f"DTensor loss {loss} against plain {plain_loss}")
+    require(plain_flops == res["dot_flops_predicted"],
+            f"FlopCounterMode {plain_flops} against predicted dot FLOPs "
+            f"{res['dot_flops_predicted']}")
+    require(abs(res["peak_ratio"] - 1) <= CHECK_PEAK_RTOL,
+            f"peak {peak} against predicted {mem['peak_per_device_bytes']}")
+    # the int32 step counter: the reference's argument, a Python int here
+    require(held == mem["argument_bytes"] - batch_bytes - 4,
+            f"parameter and moment bytes {held} against "
+            f"{mem['argument_bytes']} - {batch_bytes} - 4")
+    require(median >= res["bound_s"],
+            f"a step took {median} s, under its bound {res['bound_s']} s")
+    return res
+
+
+def _batch_spec(cfg, rules) -> tuple:
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.api import batch_specs
+    return batch_specs(cfg, ShapeConfig("smoke_train", TRAIN_SEQ, TRAIN_BATCH,
+                                        "train"), rules)["tokens"]
+
+
 def generate_parity_phase() -> dict:
     """Each family in f32 at its least depth (dense PARITY_LAYERS, the
     rest their FAMILY_PARITY cut), one seed, 2 prompts of
@@ -2360,6 +2649,15 @@ def main() -> int:
               "test needs an NVIDIA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:] == ["--dryrun-only"]:
+        # the dry-run phases alone, for a short call; not the whole smoke
+        emit({"gpu": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), "torch": torch.__version__})
+        dryrun_phases()
+        emit({"partial": "dryrun phases only"})
+        return 0
     import numpy as np
 
     from repro_torch.core.pms import PMSReader
@@ -2649,6 +2947,9 @@ def main() -> int:
         # -- generation: every family on the card, then card vs CPU
         emit({"generate": generate_phase()})
         emit({"generate_parity": generate_parity_phase()})
+
+        # -- the dry-run on fake H100 meshes, then its prediction on the card
+        dryrun_phases()
         for e in entries:  # the launches of the ingest phase's float twin
             key = next(k for k in (*INGEST_KERNELS, "scatter_add",
                                    "int8_quant") if e["name"].startswith(k))
@@ -2656,6 +2957,7 @@ def main() -> int:
         emit({"kernels": entries})
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    emit({"phase_seconds": dict(_PHASE_S)})
 
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,13 @@ there the operands are upcast to f32 before the product.  TF32 stays off
 Memory-critical paths are chunked as in the reference: attention runs
 block-wise with an online softmax, and the LM loss walks sequence chunks
 so vocab logits exist only as (B, chunk, V) tiles.
+
+Sharding is annotated with logical names via
+``repro_torch.sharding.constrain`` at the reference's points; on plain
+tensors, or without rules, each is a no-op.  On DTensors split by
+vocab, the embedding lookup and the loss's log-sum-exp and gold logit
+run shard by shard and sum (B, S)-sized partials across the mesh, as
+XLA partitions them; their values are the plain path's.
 """
 from __future__ import annotations
 
@@ -19,6 +26,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.sharding.specs import constrain, from_local, is_sharded
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
@@ -54,6 +65,75 @@ def _online_softmax_step(m, l, acc, s, vb):
     return m_new, l_new, acc_new
 
 
+def _local_placements(q, k):
+    """q's and k's placements with every mesh dim that splits anything
+    but batch (dim 0) or query heads (dim 2, with kv heads split alike
+    or whole) made whole."""
+    pq, pk = list(q.placements), list(k.placements)
+    heads = False
+    for i, (a, b) in enumerate(zip(pq, pk)):
+        if a == b == Shard(0):
+            continue
+        if a == Shard(2) and not heads and b in (Shard(2), Replicate()):
+            heads = True
+            continue
+        pq[i], pk[i] = Replicate(), Replicate()
+    return pq, pk
+
+
+def _shard_local(q, k, v, *, gather: bool = False):
+    """Attention on DTensors split only by batch (dim 0) and heads (dim
+    2) is local to each shard.  Then the local q, k and v (k and v
+    narrowed to the kv heads the local queries read, where they are whole
+    on the heads' mesh dim) and a function that places a local output as
+    q is placed; else None, and DTensor runs the ops.  With ``gather``
+    any other split (head_dim, where the heads do not divide the model
+    axis) is first made whole, so the mesh dim computes the attention
+    redundantly."""
+    if not isinstance(q, DTensor) or not isinstance(k, DTensor) \
+            or not isinstance(v, DTensor) or k.placements != v.placements:
+        return None
+    mesh = q.device_mesh
+    if gather:
+        pq, pk = _local_placements(q, k)
+        q = q.redistribute(mesh, pq)
+        k, v = k.redistribute(mesh, pk), v.redistribute(mesh, pk)
+    G = q.shape[2] // k.shape[2]
+    heads_dim = None
+    for i, (a, b) in enumerate(zip(q.placements, k.placements)):
+        if a == b and (isinstance(a, Replicate) or a == Shard(0)):
+            continue
+        if a == Shard(2) and heads_dim is None and (
+                b == Shard(2) or isinstance(b, Replicate)):
+            heads_dim = i
+            continue
+        return None
+    for t in (q, k):  # even shards only
+        for i, p in enumerate(t.placements):
+            if isinstance(p, Shard) and t.shape[p.dim] % mesh.size(i):
+                return None
+    ql = q.to_local()
+    if heads_dim is not None and isinstance(k.placements[heads_dim],
+                                            Replicate):
+        # q's heads are split, the kv heads whole: take the local slice
+        hl = ql.shape[2]
+        if hl % G and G % hl:
+            return None
+        first = mesh.get_local_rank(heads_dim) * hl // G
+        grad_pl = [Partial() if i == heads_dim else p
+                   for i, p in enumerate(k.placements)]
+        kl, vl = (t.to_local(grad_placements=grad_pl).narrow(
+            2, first, max(hl // G, 1)) for t in (k, v))
+    else:
+        kl, vl = k.to_local(), v.to_local()
+
+    def wrap(out_local):
+        return from_local(out_local, mesh, q.placements,
+                          (*q.shape[:-1], out_local.shape[-1]))
+
+    return (ql, kl, vl), wrap
+
+
 def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
                     q_chunk: int = 512, kv_chunk: int = 1024,
                     mode: str = "masked") -> torch.Tensor:
@@ -63,7 +143,14 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     ``mode="triangle"`` visits, for each q block, only the kv blocks at or
     before it; ``"masked"`` visits every kv block and masks.  q is scaled
     and cast back to its dtype before QK^T; scores and P.V are f32.
+    DTensors attend shard by shard, split by batch and heads only.
     """
+    local = _shard_local(q, k, v, gather=True)
+    if local is not None:
+        (q, k, v), wrap = local
+        return wrap(flash_attention(q, k, v, causal=causal,
+                                    q_offset=q_offset, q_chunk=q_chunk,
+                                    kv_chunk=kv_chunk, mode=mode))
     B, Sq0, H, hd = q.shape
     T0, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -124,7 +211,17 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     ``>= cache_len`` (an int, or a tensor that broadcasts against the
     (B, KVH, G, T) scores, e.g. (B, 1, 1, 1) for ragged rows) are masked
     to ``-inf``; scores and softmax are f32, the probabilities are cast to
-    the cache's dtype and multiplied with f32 accumulation."""
+    the cache's dtype and multiplied with f32 accumulation.  DTensors
+    split by batch and heads attend shard by shard."""
+    local = _shard_local(q, k_cache, v_cache)
+    if local is not None:
+        (q, k_cache, v_cache), wrap = local
+        return wrap(decode_attention(q, k_cache, v_cache, cache_len))
+    if is_sharded(q, 2):
+        # the cache split otherwise (head_dim): the one query's heads are
+        # made whole, so that grouping them cannot cut a split
+        q = q.redistribute(q.device_mesh, [
+            Replicate() if p.is_shard(2) else p for p in q.placements])
     B, _, H, hd = q.shape
     T, KVH = k_cache.shape[1], k_cache.shape[2]
     G = H // KVH
@@ -134,7 +231,13 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     p = torch.softmax(s.masked_fill(~mask, -math.inf), dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
-    return out.reshape(B, 1, H, hd).to(q.dtype)
+    out = out.reshape(B, 1, H, hd).to(q.dtype)
+    if is_sharded(out, 3):
+        # split by head_dim (the cache's split): whole again, so that the
+        # heads can be flattened into the output projection's rows
+        out = out.redistribute(out.device_mesh, [
+            Replicate() if p.is_shard(3) else p for p in out.placements])
+    return out
 
 
 def kv_write(kv, k, v, at: int) -> None:
@@ -161,7 +264,83 @@ def glu_mlp(x, wg, wu, wd, act: str) -> torch.Tensor:
     """SwiGLU / GeGLU block; x (B, S, D); w* 2-D."""
     h = (F.silu(x @ wg) if act == "silu"
          else F.gelu(x @ wg, approximate="tanh"))
-    return (h * (x @ wu)) @ wd
+    h = constrain(h * (x @ wu), "batch", "seq", "ff")
+    return h @ wd
+
+
+def heads(t: torch.Tensor, n: int, hd: int, axis: str) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd).  A DTensor is first constrained
+    to keep whole heads on each shard, split by ``axis`` (``"heads"`` or
+    ``"kv_heads"``) or not at all, so that the split never cuts a head."""
+    t = constrain(t, "batch", "seq", axis)
+    return t.reshape(t.shape[0], t.shape[1], n, hd)
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Rows ``tokens`` of ``table`` by indexing, or on a DTensor table by
+    ``F.embedding``.  A table split by vocab rows is looked up on each
+    shard: rows outside it give zeros, and the result is a partial sum
+    over the vocab's mesh dim (the caller's ``constrain`` adds it up), as
+    XLA gathers from a vocab-sharded operand."""
+    if not isinstance(table, DTensor):
+        return table[tokens.long()]
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements)
+             if isinstance(p, Shard) and p.dim == 0]
+    if not vocab:
+        return F.embedding(tokens.long(), table)
+    tok_pl = (tokens.placements if isinstance(tokens, DTensor)
+              else (Replicate(),) * mesh.ndim)
+    if len(vocab) > 1 or not isinstance(tok_pl[vocab[0]], Replicate):
+        raise NotImplementedError(
+            f"a lookup with the table placed {table.placements} and the "
+            f"tokens {tok_pl}")
+    d = vocab[0]
+    # the table whole but for its vocab split (FSDP gathers d_model here)
+    local = table.redistribute(mesh, [Shard(0) if i == d else Replicate()
+                                      for i in range(mesh.ndim)]).to_local()
+    ids = tokens.to_local() if isinstance(tokens, DTensor) else tokens
+    rows = local.shape[0]
+    rel = ids.long() - mesh.get_local_rank(d) * rows
+    hit = (rel >= 0) & (rel < rows)
+    out = F.embedding(rel.clamp(0, rows - 1), local) * hit[..., None].to(
+        local.dtype)
+    return DTensor.from_local(
+        out, mesh, [Partial() if i == d else p for i, p in enumerate(tok_pl)],
+        run_check=False, shape=(*tokens.shape, table.shape[1]),
+        stride=(tokens.shape[1] * table.shape[1], table.shape[1], 1))
+
+
+def _vocab_parallel_terms(logits, labels):
+    """``(logsumexp(logits), logits[labels])``, each (B, c) and whole on
+    the vocab's mesh dim, of logits split by vocab (Megatron's
+    vocab-parallel cross-entropy): each shard exponentiates and gathers
+    its own columns, and only (B, c) partial sums and maxima cross the
+    mesh, in both passes.  The max is taken without gradient (it cancels
+    in the log-sum-exp's), and an infinite one counts as 0, as in
+    ``torch.logsumexp``."""
+    mesh = logits.device_mesh
+    d = next(i for i, p in enumerate(logits.placements) if p.is_shard(2))
+    shape = tuple(logits.shape[:-1])
+    pl = list(logits.placements)
+
+    def summed(local, op="sum"):
+        part = from_local(local, mesh, pl[:d] + [Partial(op)] + pl[d + 1:],
+                          shape)
+        return part.redistribute(mesh, pl[:d] + [Replicate()] + pl[d + 1:])
+
+    local = logits.to_local()
+    m = summed(local.detach().amax(dim=-1), "max").to_local()
+    m = m.masked_fill(m.abs() == math.inf, 0.0)
+    sumexp = summed(torch.exp(local - m[..., None]).sum(dim=-1))
+    ids = labels.to_local() if isinstance(labels, DTensor) else labels
+    cols = local.shape[-1]
+    rel = ids - mesh.get_local_rank(d) * cols
+    hit = (rel >= 0) & (rel < cols)
+    gold = torch.gather(local, -1, rel.clamp(0, cols - 1)[..., None])[..., 0]
+    gold = summed(gold * hit.to(gold.dtype))
+    m = from_local(m, mesh, pl[:d] + [Replicate()] + pl[d + 1:], shape)
+    return torch.log(sumexp) + m, gold
 
 
 def sinusoid_positions(n: int, d: int, device=None) -> torch.Tensor:
@@ -192,9 +371,13 @@ def chunked_softmax_xent(x, w_out, labels, mask=None, chunk: int = 512
         lc = labels[:, i * c:(i + 1) * c].long()
         mc = (torch.ones(lc.shape, device=x.device) if mask is None
               else mask[:, i * c:(i + 1) * c].float())
-        logits = xc @ w
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+        # (B, c, V), and its gradient, kept split by vocab as XLA keeps it
+        logits = constrain(xc @ w, "batch", "seq", "vocab")
+        if is_sharded(logits, -1):
+            logz, gold = _vocab_parallel_terms(logits, lc)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lc[..., None])[..., 0]
         tot = tot + ((logz - gold) * mc).sum()
         cnt = cnt + mc.sum()
     return tot / torch.clamp_min(cnt, 1.0)
@@ -207,5 +390,17 @@ def next_token_xent(x, w_out, tokens) -> torch.Tensor:
     B, S = tokens.shape
     mask = torch.ones((B, S), device=tokens.device)
     mask[:, -1] = 0.0
-    return chunked_softmax_xent(x, w_out, torch.roll(tokens, -1, dims=1),
-                                mask)
+    return chunked_softmax_xent(x, w_out, _roll_left(tokens), mask)
+
+
+def _roll_left(tokens: torch.Tensor) -> torch.Tensor:
+    """``torch.roll(tokens, -1, dims=1)``; on a DTensor whose sequence is
+    whole on each shard (torch has no sharding strategy for ``roll``),
+    each shard rolls its own rows."""
+    if not isinstance(tokens, DTensor):
+        return torch.roll(tokens, -1, dims=1)
+    if is_sharded(tokens, 1):
+        raise NotImplementedError("roll over a sequence split across the mesh")
+    return from_local(torch.roll(tokens.to_local(), -1, dims=1),
+                      tokens.device_mesh, tokens.placements,
+                      tuple(tokens.shape))

@@ -20,9 +20,14 @@ is given, in place, and returns that cache; and it raises ``ValueError``
 on a full cache, where the reference overwrites the last row.  The cache's
 ``"len"`` is a Python int, so that check costs no device sync.
 
-Not ported yet (``ROADMAP.md`` §1): the sharding constraints and GQA
-expansion, which need a mesh: without sharding rules the reference does
-not expand either.
+Under sharding rules (``repro_torch.sharding.set_rules``) and on
+DTensor parameters the model constrains its activations at the
+reference's points, and expands GQA keys and values to the query heads
+where the kv heads cannot shard the model axis (:func:`_kv_expand`).
+Each sublayer's output is also constrained to the residual stream's
+(batch, seq, embed) placement: XLA's propagation holds it there, while
+DTensor would carry a partial sum down the stream.  Without rules every
+constraint is a no-op and nothing expands.
 """
 from __future__ import annotations
 
@@ -32,10 +37,31 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (decode_attention, flash_attention,
-                                       glu_mlp, kv_write, logits_f32,
-                                       next_token_xent, rms_norm, rope)
+from repro_torch.models.layers import (decode_attention, embed,
+                                       flash_attention, glu_mlp, heads,
+                                       kv_write, logits_f32, next_token_xent,
+                                       rms_norm, rope)
 from repro_torch.models.params import ParamDef, torch_dtype
+from repro_torch.sharding.specs import constrain, current_rules, zeros
+
+
+def _kv_expand(cfg: ModelConfig) -> bool:
+    """GQA -> MHA expansion when kv heads can't shard the model axis.
+
+    Expanding K/V to the full head count keeps every device's attention
+    local: the repeat is sharded on `heads`, so each device materialises
+    only its own slice (reference ``lm.py:27-40``)."""
+    r = current_rules()
+    return (r is not None and cfg.n_kv_heads < cfg.n_heads
+            and r.size("kv_heads") == 1 and r.size("heads") > 1
+            and r.size("head_dim") == 1)
+
+
+def _expand(cfg: ModelConfig, t: torch.Tensor, seq: str) -> torch.Tensor:
+    """(B, T, KVH, hd) -> (B, T, H, hd), each kv head repeated for its
+    queries (``jnp.repeat`` on axis 2) and sharded on `heads`."""
+    t = t.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=2)
+    return constrain(t, "batch", seq, "heads", "head_dim")
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -89,24 +115,36 @@ class Block(nn.Module):
         B, S, _ = x.shape
         H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         h = rms_norm(x, self.ln_attn, cfg.norm_eps)
-        q = (h @ self.wq).reshape(B, S, H, hd)
-        k = (h @ self.wk).reshape(B, S, KVH, hd)
-        v = (h @ self.wv).reshape(B, S, KVH, hd)
+        q = heads(h @ self.wq, H, hd, "heads")
+        k = heads(h @ self.wk, KVH, hd, "kv_heads")
+        v = heads(h @ self.wv, KVH, hd, "kv_heads")
         if cfg.qk_norm:
             q = rms_norm(q, self.q_norm, cfg.norm_eps)
             k = rms_norm(k, self.k_norm, cfg.norm_eps)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+        q = constrain(q, "batch", "seq", "heads", "head_dim")
+        k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
+        v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
         if kv is not None:
             kv_write(kv, k, v, cache_len or 0)
+        expand = _kv_expand(cfg)
         if cache_len is None:
-            attn = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
-                                   kv_chunk=cfg.kv_chunk,
+            ka, va = k, v
+            if expand:
+                ka, va = _expand(cfg, k, "seq"), _expand(cfg, v, "seq")
+            attn = flash_attention(q, ka, va, causal=True,
+                                   q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                                    mode=cfg.causal_mode)
         else:
             n = cache_len + 1
-            attn = decode_attention(q, kv[0][:, :n], kv[1][:, :n], n)
-        return x + attn.reshape(B, S, H * hd) @ self.wo
+            ka, va = kv[0][:, :n], kv[1][:, :n]
+            if expand:
+                ka, va = _expand(cfg, ka, "kv_seq"), _expand(cfg, va, "kv_seq")
+            attn = decode_attention(q, ka, va, n)
+        out = constrain(attn.reshape(B, S, H * hd) @ self.wo,
+                        "batch", "seq", "embed")
+        return x + out
 
     def mlp(self, x):
         cfg = self.cfg
@@ -119,8 +157,8 @@ class Block(nn.Module):
                                   capacity_factor=cfg.capacity_factor,
                                   act=cfg.act)
             return x + out, moe_mod.moe_aux_loss(probs)
-        return x + glu_mlp(h, self.w_gate, self.w_up, self.w_down,
-                           cfg.act), None
+        return x + constrain(glu_mlp(h, self.w_gate, self.w_up, self.w_down,
+                                     cfg.act), "batch", "seq", "embed"), None
 
 
 class CrossAttention(nn.Module):
@@ -140,14 +178,15 @@ class CrossAttention(nn.Module):
         B, S, _ = x.shape
         H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         h = rms_norm(x, self.ln, cfg.norm_eps)
-        q = (h @ self.wq).reshape(B, S, H, hd)
-        k = (memory @ self.wk).reshape(B, -1, KVH, hd)
-        v = (memory @ self.wv).reshape(B, -1, KVH, hd)
+        q = heads(h @ self.wq, H, hd, "heads")
+        k = heads(memory @ self.wk, KVH, hd, "kv_heads")
+        v = heads(memory @ self.wv, KVH, hd, "kv_heads")
+        q = constrain(q, "batch", "seq", "heads", "head_dim")
         attn = flash_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
                                kv_chunk=cfg.kv_chunk)
         out = attn.reshape(B, S, H * hd) @ self.wo
         gate = torch.tanh(self.gate.float()).to(x.dtype)
-        return x + gate * out
+        return x + gate * constrain(out, "batch", "seq", "embed")
 
 
 class TransformerLM(nn.Module):
@@ -234,7 +273,8 @@ class TransformerLM(nn.Module):
 
     # -- forward -------------------------------------------------------------
     def _embed_in(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens.long()].to(torch_dtype(self.cfg.dtype))
+        x = constrain(embed(tokens, self.embed), "batch", "seq", "embed")
+        return x.to(torch_dtype(self.cfg.dtype))
 
     def _head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -311,10 +351,8 @@ class TransformerLM(nn.Module):
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed_in(tokens)
-        shape = (cfg.n_layers, B, max(S, max_len or 0), cfg.n_kv_heads,
-                 cfg.hd)
-        kv = tuple(torch.zeros(shape, dtype=torch_dtype(cfg.dtype),
-                               device=x.device) for _ in range(2))
+        kv = tuple(zeros(d.shape, d.logical, torch_dtype(cfg.dtype), x.device)
+                   for d in self.cache_defs(B, max(S, max_len or 0))["kv"])
         positions = torch.arange(S, device=x.device)[None, :]
         vision = batch["vision_embed"] if cfg.family == "vlm" else None
         x = self._backbone(x, positions, vision, [], kv)

@@ -14,8 +14,9 @@ two:
   ``np.asarray`` of the JAX tree gives, or tensors) into a model;
 * :func:`to_reference` turns a model's parameters back into that tree.
 
-Sharding logical axes are kept in the definitions for parity and unused:
-the port runs on one card (meshes are a later slice).
+:func:`shapedtypes` and :func:`specs` give the dry-run each module
+parameter's shape and sharding: the def of ``<group>/<name>`` with its
+leading (layer) axis dropped, under ``unstack``'s name.
 """
 from __future__ import annotations
 
@@ -80,6 +81,39 @@ def init_params(defs, generator: torch.Generator, dtype, device) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = mk(d)
     return out
+
+
+def unstacked_defs(defs) -> dict[str, ParamDef]:
+    """ParamDef tree -> ``{module parameter name: ParamDef}``, each stacked
+    ``<group>/<name>`` def becoming ``<group>.<i>.<name>`` without its
+    leading axis (:func:`unstack`'s naming)."""
+    flat = {}
+    for path, d in flatten(defs):
+        parts = path.split("/")
+        if parts[0] in STACKED:
+            one = ParamDef(d.shape[1:], d.logical[1:], d.init, d.scale)
+            for i in range(d.shape[0]):
+                flat[".".join([parts[0], str(i), *parts[1:]])] = one
+        else:
+            flat[".".join(parts)] = d
+    return flat
+
+
+def shapedtypes(defs, dtype) -> dict[str, torch.Tensor]:
+    """``{module parameter name: meta tensor}`` in ``dtype``: the shapes
+    of :func:`unstacked_defs`, nothing allocated."""
+    dtype = torch_dtype(dtype)
+    return {n: torch.empty(d.shape, dtype=dtype, device="meta")
+            for n, d in unstacked_defs(defs).items()}
+
+
+def specs(defs, rules) -> dict[str, tuple]:
+    """``{module parameter name: spec}``, each the
+    :func:`~repro_torch.sharding.specs.logical_to_spec` of its unstacked
+    def's logical axes under ``rules``."""
+    from repro_torch.sharding.specs import logical_to_spec
+    return {n: logical_to_spec(d.logical, rules)
+            for n, d in unstacked_defs(defs).items()}
 
 
 def torch_dtype(dtype) -> torch.dtype:

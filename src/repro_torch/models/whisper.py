@@ -18,6 +18,11 @@ the frames; ``cache_defs`` takes the encoder length where the other
 families take ``max_len``.  As in :mod:`repro_torch.models.lm`,
 ``decode_step`` writes the cache it is given in place and raises
 ``ValueError`` on a full cache (``ROADMAP.md`` §3).
+
+Under sharding rules the encoder's input and its queries are constrained
+as in the reference (``whisper.py:74, 82``), and the decoder's embedded
+tokens and each sublayer's output to the residual stream's placement (as
+in ``models.lm``).
 """
 from __future__ import annotations
 
@@ -26,12 +31,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (decode_attention, flash_attention,
-                                       glu_mlp, kv_write, logits_f32,
-                                       next_token_xent, rms_norm,
-                                       sinusoid_positions)
+from repro_torch.models.layers import (decode_attention, embed,
+                                       flash_attention, glu_mlp, heads,
+                                       kv_write, logits_f32, next_token_xent,
+                                       rms_norm, sinusoid_positions)
 from repro_torch.models.lm import _param, _params
 from repro_torch.models.params import ParamDef, torch_dtype
+from repro_torch.sharding.specs import constrain, zeros
 
 
 def _attn_defs(L, D, H, KVH, hd, prefix=""):
@@ -80,19 +86,23 @@ class _Layer(nn.Module):
         p = lambda n: getattr(self, prefix + n)
         h = rms_norm(x, p("ln"), cfg.norm_eps)
         src = h if memory is None else memory
-        q = (h @ p("wq")).reshape(B, S, H, hd)
-        k = (src @ p("wk")).reshape(B, -1, KVH, hd)
-        v = (src @ p("wv")).reshape(B, -1, KVH, hd)
+        q = heads(h @ p("wq"), H, hd, "heads")
+        k = heads(src @ p("wk"), KVH, hd, "kv_heads")
+        v = heads(src @ p("wv"), KVH, hd, "kv_heads")
+        if memory is None and not causal:  # the encoder
+            q = constrain(q, "batch", "seq", "heads", "head_dim")
         if store is not None:
             kv_write(store, k, v, 0)
         a = flash_attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk,
                             kv_chunk=cfg.kv_chunk)
-        return x + a.reshape(B, S, H * hd) @ p("wo")
+        return x + constrain(a.reshape(B, S, H * hd) @ p("wo"),
+                             "batch", "seq", "embed")
 
     def _mlp(self, x):
         cfg = self.cfg
         h2 = rms_norm(x, self.ln_mlp, cfg.norm_eps)
-        return x + glu_mlp(h2, self.w_gate, self.w_up, self.w_down, cfg.act)
+        return x + constrain(glu_mlp(h2, self.w_gate, self.w_up, self.w_down,
+                                     cfg.act), "batch", "seq", "embed")
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor | None = None,
                 store=None) -> torch.Tensor:
@@ -119,16 +129,18 @@ class _Layer(nn.Module):
         H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         k_buf, v_buf, xk, xv = store
         h = rms_norm(x, self.ln, cfg.norm_eps)
-        q = (h @ self.wq).reshape(B, 1, H, hd)
-        kv_write((k_buf, v_buf), (h @ self.wk).reshape(B, 1, KVH, hd),
-                 (h @ self.wv).reshape(B, 1, KVH, hd), cache_len)
+        q = heads(h @ self.wq, H, hd, "heads")
+        kv_write((k_buf, v_buf), heads(h @ self.wk, KVH, hd, "kv_heads"),
+                 heads(h @ self.wv, KVH, hd, "kv_heads"), cache_len)
         n = cache_len + 1
         a = decode_attention(q, k_buf[:, :n], v_buf[:, :n], n)
-        x = x + a.reshape(B, 1, H * hd) @ self.wo
+        x = x + constrain(a.reshape(B, 1, H * hd) @ self.wo,
+                          "batch", "seq", "embed")
         h = rms_norm(x, self.x_ln, cfg.norm_eps)
-        q = (h @ self.x_wq).reshape(B, 1, H, hd)
+        q = heads(h @ self.x_wq, H, hd, "heads")
         a = decode_attention(q, xk, xv, xk.shape[1])
-        x = x + a.reshape(B, 1, H * hd) @ self.x_wo
+        x = x + constrain(a.reshape(B, 1, H * hd) @ self.x_wo,
+                          "batch", "seq", "embed")
         return self._mlp(x)
 
 
@@ -185,6 +197,7 @@ class WhisperModel(nn.Module):
         _, S, D = frames.shape
         x = frames.to(torch_dtype(cfg.dtype))
         x = x + sinusoid_positions(S, D, x.device).to(x.dtype)[None]
+        x = constrain(x, "batch", "seq", "embed")
         for layer in self.enc:
             x = self._run(layer, x)
         return rms_norm(x, self.enc_norm, cfg.norm_eps)
@@ -192,7 +205,8 @@ class WhisperModel(nn.Module):
     def _embed_dec(self, tokens: torch.Tensor, first: int) -> torch.Tensor:
         """Decoder inputs: the tokens' embeddings plus the learned
         positions ``first..first+S-1``."""
-        x = self.embed[tokens.long()].to(torch_dtype(self.cfg.dtype))
+        x = constrain(embed(tokens, self.embed), "batch", "seq", "embed")
+        x = x.to(torch_dtype(self.cfg.dtype))
         return x + self.pos_dec[None, first:first + tokens.shape[1]].to(
             x.dtype)
 
@@ -233,11 +247,8 @@ class WhisperModel(nn.Module):
             raise ValueError(f"prefill: {S} decoder tokens, more than "
                              f"max_decoder_len {cfg.max_decoder_len}")
         dt, dev = torch_dtype(cfg.dtype), memory.device
-        shape = lambda T: (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.hd)
-        cache = {n: torch.zeros(shape(cfg.max_decoder_len), dtype=dt,
-                                device=dev) for n in ("k", "v")}
-        cache.update({n: torch.empty(shape(memory.shape[1]), dtype=dt,
-                                     device=dev) for n in ("xk", "xv")})
+        cache = {n: zeros(d.shape, d.logical, dt, dev) for n, d in
+                 self.cache_defs(B, memory.shape[1]).items() if d.shape}
         cache["len"] = S
         x = self._embed_dec(tokens, 0)
         for i, layer in enumerate(self.dec):

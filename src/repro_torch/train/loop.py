@@ -9,18 +9,25 @@ backward pass, which change nothing, and runs the update once: an update
 that fails partway raises, since running it again would apply the step
 twice to the tensors it had already written.
 
-The mesh and sharding-rule arguments are not ported (``ROADMAP.md`` §1,
-mesh).
+With a ``mesh`` and ``rules`` the step runs under
+:func:`~repro_torch.sharding.specs.set_rules` on the model's DTensor
+parameters: the model's constraints resolve against that mesh, each
+gradient is reduced to its parameter's placements once, and AdamW updates
+the DTensor parameters and moments in place.  The same step runs on one
+device, on a real process group and in the dry-run's fake one.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import params as P
+from repro_torch.sharding.specs import distribute, set_rules
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
 
@@ -41,8 +48,24 @@ def value_and_grad(model, batch: dict) -> tuple[torch.Tensor, dict]:
     named = dict(model.named_parameters())
     loss = model.loss_fn(batch)
     grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
-    return loss.detach(), {n: torch.zeros_like(p) if g is None else g
+    return loss.detach(), {n: torch.zeros_like(p) if g is None else
+                           _as_param(g, p)
                            for (n, p), g in zip(named.items(), grads)}
+
+
+def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient reduced to its parameter's placements (a
+    partial sum becomes an all-reduce or a reduce-scatter), once."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _rules(mesh, rules):
+    """``set_rules(mesh, rules)``, or nothing without a mesh."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return set_rules(mesh, rules)
 
 
 def make_grad_fn(model, *, microbatches: int = 1,
@@ -91,17 +114,19 @@ def apply_update(model, opt_state: dict, loss: torch.Tensor, grads: dict,
     return metrics
 
 
-def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
-                    accum_dtype=torch.float32):
+def make_train_step(model, opt_cfg: AdamWConfig, *, mesh=None, rules=None,
+                    microbatches: int = 1, accum_dtype=torch.float32):
     """``train_step(opt_state, batch) -> metrics``: loss -> grads -> AdamW,
     on ``model``'s parameters in place (:func:`make_grad_fn`, then
-    :func:`apply_update`)."""
+    :func:`apply_update`), under ``set_rules(mesh, rules)`` when a mesh
+    is given (the reference's ``loop.py:32-43``)."""
     grad_fn = make_grad_fn(model, microbatches=microbatches,
                            accum_dtype=accum_dtype)
 
     def train_step(opt_state: dict, batch: dict) -> dict:
-        loss, grads = grad_fn(batch)
-        return apply_update(model, opt_state, loss, grads, opt_cfg)
+        with _rules(mesh, rules):
+            loss, grads = grad_fn(batch)
+            return apply_update(model, opt_state, loss, grads, opt_cfg)
 
     return train_step
 
@@ -110,8 +135,10 @@ class Trainer:
     """Drives the step over a pipeline with fault-tolerance hooks."""
 
     def __init__(self, model, opt_cfg: AdamWConfig, tcfg: TrainerConfig,
-                 pipeline, *, ckpt=None, profiler=None):
+                 pipeline, *, ckpt=None, profiler=None, mesh=None,
+                 rules=None):
         self.model = model
+        self.mesh, self.rules = mesh, rules
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
         self.pipeline = pipeline
@@ -141,23 +168,28 @@ class Trainer:
             t_data = time.perf_counter()
             batch = {"tokens": torch.from_numpy(
                 self.pipeline.batch_at(step)).to(self.device)}
+            if self.mesh is not None:
+                batch = {"tokens": distribute(batch["tokens"],
+                                              ("batch", "seq"), self.mesh,
+                                              self.rules)}
             data_wait = time.perf_counter() - t_data
 
             self._sync()
             t0 = time.perf_counter()
             tries = 0
-            while True:
-                try:
-                    loss, grads = self.grad_fn(batch)
-                    self._sync()
-                    break
-                except Exception:
-                    tries += 1
-                    if tries > self.tcfg.max_retries:
-                        raise
-            # writes in place: once, never retried
-            metrics = apply_update(self.model, opt_state, loss, grads,
-                                   self.opt_cfg)
+            with _rules(self.mesh, self.rules):
+                while True:
+                    try:
+                        loss, grads = self.grad_fn(batch)
+                        self._sync()
+                        break
+                    except Exception:
+                        tries += 1
+                        if tries > self.tcfg.max_retries:
+                            raise
+                # writes in place: once, never retried
+                metrics = apply_update(self.model, opt_state, loss, grads,
+                                       self.opt_cfg)
             del grads
             self._sync()
             dt = time.perf_counter() - t0

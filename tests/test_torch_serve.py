@@ -170,6 +170,17 @@ def test_http_bodies_equal_reference(db_dir, endpoint):
 
 
 def test_http_health_metrics_spans_and_drain(db_dir):
+    from repro_torch.obs.trace import configure, recorder
+    before = recorder().capacity
+    try:
+        _health_metrics_spans_and_drain(db_dir)
+    finally:
+        # the server resized this process's recorder; other tests that run
+        # after this one in the same worker read its default size
+        configure(before)
+
+
+def _health_metrics_spans_and_drain(db_dir):
     with Database(db_dir) as db, QueryHTTPServer(db, port=0, warm_bytes=0,
                                                  trace_ring=256) as srv:
         with QueryClient(*srv.address) as cl:
