@@ -119,7 +119,8 @@ read just after:
     rows in one segment).
 11. The other families at full width, each freeing the card before the
     next.  ``train_moe`` — qwen3-moe-30b-a3b (128 experts top-8, capacity
-    factor 1.25) cut to 4 of 48 layers, registered in process and run
+    factor 1.25) cut to 2 of 48 layers (the smoke's time: every dry-run
+    family beside it), registered in process and run
     through ``repro_torch.launch.train`` (the sorted dispatch), 5 steps at
     batch 8 x 128 with a profile and a checkpoint; one more step with the
     rowwise dispatch through ``make_train_step``, then one more step of
@@ -142,16 +143,17 @@ read just after:
     the card with each dispatch: loss and every gradient bit-equal.
 12. The SSM and hybrid families at full width and the published chunk of
     256, each freeing the card before the next.  ``train_hybrid`` —
-    zamba2-7b cut to 13 of 81 layers (the shared attention block before
-    groups of 6, 6 and 1), registered in process and run through
+    zamba2-7b cut to 7 of 81 layers (the shared attention block before
+    groups of 6 and 1), registered in process and run through
     ``repro_torch.launch.train`` at batch 8 x 512 (two chunks a layer), 5
     steps with a profile and a checkpoint, one more step under
     ``torch.profiler``, then ``--resume`` takes one more step and the
     checkpoint is deleted: step times, tokens/s, model TFLOP/s, peak
     memory, losses and gradient norms, which must all be finite.
     ``train_hybrid_profile`` — the port's ``analyze`` on the card over that
-    run's ``worker0.rprf``.  ``train_xlstm`` — xlstm-350m whole (18 mLSTM
-    and 6 sLSTM blocks) at batch 8 x 512 through ``make_train_step``, 3
+    run's ``worker0.rprf``.  ``train_xlstm`` — xlstm-350m cut to 12 of 24
+    blocks (9 mLSTM and 3 sLSTM) at batch 8 x 512 through
+    ``make_train_step``, 3
     steps and a traced fourth, all finite, and one mLSTM and one sLSTM
     block's forward and backward timed alone.  ``ssm_scan`` —
     ``linear_rnn_chunked`` alone at both families' full shapes (batch 8 x
@@ -167,7 +169,7 @@ read just after:
     ``python -m repro_torch.launch.serve`` (no mode word) as a subprocess,
     8 requests of 128 tokens and 32 new tokens each in one batch; then in
     process through ``ServeEngine.generate``, bf16 parameters from a seed:
-    qwen3-0.6b whole, the MoE cut to 4 layers and the VLM to 10 (8 x 128
+    qwen3-0.6b whole, the MoE cut to 2 layers and the VLM to 10 (8 x 128
     prompts, 1,600 seeded vision embeddings a row), whisper-small whole
     (8 x 64 decoder prompts after 1,500 seeded frames), and the recurrent
     families whole at the published chunk of 256 (8 x 128 prompts):
@@ -188,21 +190,31 @@ read just after:
     card against the CPU within 1e-3, and the share of 4 greedy tokens
     equal on both.
 14. The dry-run (no card: each cell a ``python -m repro_torch.launch.dryrun``
-    process on the CPU, all started together).  ``dryrun`` — qwen3-0.6b
-    ``train_4k`` on the fake 16x16 mesh and yi-6b ``train_4k`` on 2x16x16,
-    and while the phase is under DRYRUN_BUDGET_S llama-3.2-vision-11b
-    ``decode_32k`` and whisper-small ``prefill_32k`` on 16x16: per-device
-    memory, roofline terms and dominant term, collectives and trace
-    seconds.  ``dryrun_check`` — the dry-run's prediction for qwen3-0.6b
-    whole at 8 x 128 on a 1x1 mesh (made beside ``dryrun``) against that
-    step on the card on a one-rank NCCL group: the DTensor step's loss
-    within 1e-5 of the plain step's, ``FlopCounterMode``'s FLOPs of the
-    plain step equal to the predicted dot FLOPs, the peak within 15% of
-    the predicted one, the parameters' and moments' bytes equal to the
-    predicted argument bytes less the batch and the int32 step, and the
-    median step no faster than the roofline bound.  ``phase_seconds``
-    gives each phase's seconds.  ``python3 chip_smoke.py --dryrun-only``
-    runs these two phases alone (and is not the smoke).
+    process on the CPU, all started together).  ``dryrun`` — every family
+    at full width on fake meshes: qwen3-0.6b ``train_4k`` on 16x16, yi-6b
+    ``train_4k`` on 2x16x16 (FSDP, the pod axis), qwen3-moe-30b-a3b
+    ``train_4k`` on 16x16 (EP, 8 microbatches, f32 moments) and zamba2-7b
+    ``long_500k`` on 16x16 (``decode_sp``: the KV cache split by position
+    over ``data``, 14 attention applications of 524,288 positions); and
+    while the phase is under DRYRUN_BUDGET_S llama-3.2-vision-11b
+    ``decode_32k`` and whisper-small ``prefill_32k`` on 16x16, grok-1-314b
+    ``train_4k`` on 2x16x16 (TP-in-expert, bf16 moments, 16 microbatches)
+    and xlstm-350m ``prefill_32k`` on 16x16 (its sLSTM loop counted by its
+    trip count): per-device memory, roofline terms and dominant term,
+    collectives, the MoE cells' ``port_dispatch`` (the sorted dispatch's
+    whole-buffer sums, a cost of the port's dispatch, and the roofline
+    without them), ``rules_kind``, microbatches, moment dtype and trace
+    seconds.  ``dryrun_check`` — the dry-run's predictions (made beside
+    ``dryrun``) for qwen3-0.6b whole and qwen3-moe-30b-a3b cut to 2 layers
+    (its sorted dispatch on DTensors), each at 8 x 128 on a 1x1 mesh,
+    against that step on the card on a one-rank NCCL group: the DTensor
+    step's loss within 1e-5 of the plain step's, ``FlopCounterMode``'s
+    FLOPs of the plain step equal to the predicted dot FLOPs, the peak
+    within 15% of the predicted one, the parameters' and moments' bytes
+    equal to the predicted argument bytes less the batch and the int32
+    step, and the median step no faster than the roofline bound.
+    ``phase_seconds`` gives each phase's seconds.  ``python3 chip_smoke.py
+    --dryrun-only`` runs these two phases alone (and is not the smoke).
 
 Every line before the last is one JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero without
@@ -241,14 +253,17 @@ COMPRESSION_ROUNDS = 3
 # the other families at full width (depth cut as noted)
 MOE_ARCH, VLM_ARCH, AUDIO_ARCH = ("qwen3-moe-30b-a3b", "llama-3.2-vision-11b",
                                   "whisper-small")
-MOE_LAYERS, VLM_LAYERS = 4, 10          # of 48 and 40
+# the MoE's, zamba2's and the xLSTM's training depths keep the whole
+# smoke near 1,000 s of its 1,200 with every family's dry-run cells
+MOE_LAYERS, VLM_LAYERS = 2, 10          # of 48 and 40
 MOE_CUT = f"{MOE_ARCH}-{MOE_LAYERS}l"   # registered in process
 FAMILY_STEPS = 3                        # VLM and audio
 AUDIO_FRAMES, AUDIO_TOKENS = 1500, 448  # whisper's 30 s window, its decoder
 # the SSM and hybrid families at full width: every layer's scan runs whole
 # chunks of the published 256, two a row in training and one in parity
 HYBRID_ARCH, XLSTM_ARCH = "zamba2-7b", "xlstm-350m"
-HYBRID_LAYERS = 13                          # of 81: groups of 6, 6 and 1
+# zamba2: 7 of 81 layers, groups of 6 and 1; the xLSTM: 3 of its 6 groups
+HYBRID_LAYERS, XLSTM_TRAIN_LAYERS = 7, 12
 HYBRID_CUT = f"{HYBRID_ARCH}-{HYBRID_LAYERS}l"  # registered in process
 SSM_TRAIN_SEQ, SSM_PARITY_SEQ = 512, 256
 # linear_rnn_chunked alone at each family's full shape (batch 8 x 512)
@@ -276,11 +291,18 @@ GEN_TOL_DEVICE = 1e-3  # the card against the CPU
 # only while the phase is under DRYRUN_BUDGET_S
 DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False, True),
                 ("yi-6b", "train_4k", True, True),
+                ("qwen3-moe-30b-a3b", "train_4k", False, True),
+                ("zamba2-7b", "long_500k", False, True),
                 ("llama-3.2-vision-11b", "decode_32k", False, False),
-                ("whisper-small", "prefill_32k", False, False))
-DRYRUN_BUDGET_S, DRYRUN_TIMEOUT_S = 120, 600
-# dryrun_check: the dry-run's prediction for qwen3-0.6b whole at the train
-# phase's batch on a (1, 1) mesh, against the step on the card
+                ("whisper-small", "prefill_32k", False, False),
+                ("grok-1-314b", "train_4k", True, False),
+                ("xlstm-350m", "prefill_32k", False, False))
+DRYRUN_BUDGET_S, DRYRUN_TIMEOUT_S = 100, 600
+# dryrun_check: the dry-run's prediction for each (arch, depth cut) at the
+# train phase's batch on a (1, 1) mesh, against the step on the card:
+# qwen3-0.6b whole, and the MoE cut to MOE_LAYERS (its sorted dispatch on
+# DTensors)
+CHECK_ROWS = ((ARCH, None), (MOE_ARCH, MOE_LAYERS))
 CHECK_LOSS_TOL = 1e-5   # the DTensor step's loss against the plain step's
 CHECK_PEAK_RTOL = 0.15  # max_memory_allocated against the predicted peak
 CHECK_STEPS = 5         # timed DTensor steps after the checked one
@@ -839,17 +861,33 @@ def legacy_parity_phase(fpaths, ipaths, work: Path, fused: dict) -> dict:
 def run_query_cli(argv: list[str]) -> tuple[str, float]:
     """``python -m repro_torch.launch.analyze`` in a subprocess with no card
     visible: its stdout and wall milliseconds."""
+    return run_query_clis([argv])[0]
+
+
+def run_query_clis(argvs: list) -> list:
+    """:func:`run_query_cli` for each of ``argvs``, all started together;
+    each one's wall milliseconds run from the start to its own end."""
     import os
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.analyze",
-                           *argv], capture_output=True, text=True, env=env,
-                          cwd=ROOT, timeout=300)
-    ms = (time.perf_counter() - t0) * 1e3
-    require(proc.returncode == 0,
-            f"analyze {' '.join(argv[:3])} failed: {proc.stderr[-2000:]}")
-    return proc.stdout, ms
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.analyze", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT) for argv in argvs]
+    out = []
+    try:
+        for argv, proc in zip(argvs, procs):
+            stdout, stderr = proc.communicate(timeout=300)
+            out.append((stdout, (time.perf_counter() - t0) * 1e3))
+            require(proc.returncode == 0, f"analyze {' '.join(argv[:3])} "
+                                          f"failed: {stderr[-2000:]}")
+    finally:
+        for proc in procs:  # stops any left after a failure
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
 
 
 def _rows_by(rows: list) -> dict | None:
@@ -884,7 +922,8 @@ def _close(a, b) -> bool:
 def query_phase(analyze, dbs: dict) -> dict:
     """The port's ``analyze query`` ops on the databases the card wrote and
     on the numpy ones (``dbs``: ``{float,int}_{card,numpy}`` -> directory),
-    each op in a subprocess with ``CUDA_VISIBLE_DEVICES=""``.  The integer
+    each op in a subprocess with ``CUDA_VISIBLE_DEVICES=""``, the four
+    databases' at once.  The integer
     twin's stdout must be byte-equal between card and numpy; the float
     twin's rows the same contexts and paths with values within ATOL/RTOL.
     Each op is also timed in this process: the first call (cold: the
@@ -921,10 +960,13 @@ def query_phase(analyze, dbs: dict) -> dict:
              "int_card": dbs["float_numpy"], "int_numpy": dbs["float_numpy"]}
     for op, args in ops.items():
         docs, row = {}, {}
+        argvs = {}
         for name, db in dbs.items():
             fill = {"{other}": other[name], "{hot}": hot[name.split("_")[0]]}
-            argv = ["query", db, *[fill.get(a, a) for a in args]]
-            docs[name], row[f"{name}_subprocess_ms"] = run_query_cli(argv)
+            argvs[name] = ["query", db, *[fill.get(a, a) for a in args]]
+        for name, res in zip(argvs, run_query_clis(list(argvs.values()))):
+            docs[name], row[f"{name}_subprocess_ms"] = res
+        for name, argv in argvs.items():
             times = []
             for _ in range(2):
                 t0 = time.perf_counter()
@@ -1467,6 +1509,18 @@ def train_phase(train, work: Path):
     return out, prof / "worker0.rprf", ckpt, tr, opt
 
 
+def parity_tree(cfg) -> dict:
+    """Seeded weights for ``cfg``, drawn on the card, where a full-width
+    model's draw is quick: a parity phase loads the same tree into the
+    card's model and the CPU's."""
+    import torch
+    from repro_torch.models import params as P
+    from repro_torch.models.api import build_model
+    return P.init_params(build_model(cfg, device="meta").param_defs(),
+                         torch.Generator("cuda").manual_seed(SEED_FLOAT),
+                         cfg.dtype, "cuda")
+
+
 def train_parity_phase() -> dict:
     """The full-width model cut to 2 layers, one seed, on the card and on
     the CPU: loss and gradient global norm."""
@@ -1478,9 +1532,7 @@ def train_parity_phase() -> dict:
     from repro_torch.train.loop import value_and_grad
     from repro_torch.train.optimizer import global_norm
     cfg = get_arch(ARCH).replace(n_layers=PARITY_LAYERS)
-    tree = P.init_params(build_model(cfg, device="meta").param_defs(),
-                         torch.Generator().manual_seed(SEED_FLOAT),
-                         cfg.dtype, "cpu")
+    tree = parity_tree(cfg)
     tokens = torch.from_numpy(TokenPipeline(cfg.vocab_size, TRAIN_SEQ,
                                             PARITY_BATCH).batch_at(0))
     res = {}
@@ -1821,9 +1873,7 @@ def family_parity_phase() -> dict:
     out = {}
     for fam, (arch, cut) in FAMILY_PARITY.items():
         cfg = get_arch(arch).replace(**cut)
-        tree = P.init_params(build_model(cfg, device="meta").param_defs(),
-                             torch.Generator().manual_seed(SEED_FLOAT),
-                             cfg.dtype, "cpu")
+        tree = parity_tree(cfg)
         seq = (SSM_PARITY_SEQ if cfg.family in ("hybrid", "ssm")
                else TRAIN_SEQ)
         batch = family_batch(cfg, PARITY_BATCH, 0, "cpu", seq)
@@ -2268,13 +2318,16 @@ def _dryrun_results(procs, t0: float) -> list:
                 and mem["peak_per_device_bytes"] >= mem["argument_bytes"] > 0,
                 f"dry-run {arch} {shape}: empty result {res}")
         cell.update({
-            "n_chips": res["n_chips"], "microbatches": res["microbatches"],
-            "memory": mem, "roofline": {k: rf[k] for k in (
+            "n_chips": res["n_chips"], "rules_kind": res["rules_kind"],
+            "microbatches": res["microbatches"],
+            "moment_dtype": res["moment_dtype"], "memory": mem,
+            "roofline": {k: rf[k] for k in (
                 "compute_s", "memory_s", "collective_s", "dominant",
                 "flops_per_chip", "hbm_bytes_per_chip",
                 "collective_bytes_per_chip", "useful_fraction",
                 "mfu_bound")},
-            "collectives": res["collectives"], "op_cost": res["op_cost"],
+            "collectives": res["collectives"],
+            "port_dispatch": res["port_dispatch"], "op_cost": res["op_cost"],
             "trace_s": res["timings"]["trace_s"], "torch": res["torch"]})
         cells.append(cell)
     return cells
@@ -2289,7 +2342,7 @@ from repro_torch.launch.mesh import make_host_mesh
 base.SHAPES["smoke_train"] = base.ShapeConfig("smoke_train", {seq}, {batch},
                                               "train")
 res = dryrun.dryrun_cell({arch!r}, "smoke_train", mesh=make_host_mesh(1, 1),
-                         moment_dtype=torch.float32)
+                         moment_dtype=torch.float32, overrides={overrides!r})
 print(json.dumps(res))
 """
 
@@ -2306,33 +2359,40 @@ def _bytes(tensors) -> int:
 
 
 def dryrun_phases() -> None:
-    """``dryrun``, then ``dryrun_check``, whose prediction runs beside the
+    """``dryrun``, then ``dryrun_check``, whose predictions run beside the
     first; no process outlives them."""
-    predict = start_prediction()
+    predicts = [start_prediction(arch, layers) for arch, layers in CHECK_ROWS]
     try:
         emit({"dryrun": dryrun_phase()})
-        emit({"dryrun_check": dryrun_check_phase(predict)})
+        t0 = time.perf_counter()
+        rows = [dryrun_check_row(arch, layers, predict) for (arch, layers),
+                predict in zip(CHECK_ROWS, predicts)]
+        emit({"dryrun_check": {"rows": rows,
+                               "seconds": time.perf_counter() - t0}})
     finally:
-        if predict.poll() is None:
-            predict.kill()
-            predict.communicate()
+        for predict in predicts:
+            if predict.poll() is None:
+                predict.kill()
+                predict.communicate()
 
 
-def start_prediction() -> subprocess.Popen:
-    """The dry-run of dryrun_check's cell, started in its own process on
-    the CPU (it runs beside the ``dryrun`` phase)."""
+def start_prediction(arch: str, layers) -> subprocess.Popen:
+    """The dry-run of a dryrun_check row's cell (``arch`` cut to
+    ``layers``, or whole), started in its own process on the CPU (it runs
+    beside the ``dryrun`` phase)."""
     return subprocess.Popen(
         [sys.executable, "-c", _PREDICT.format(
-            seq=TRAIN_SEQ, batch=TRAIN_BATCH, arch=ARCH)],
+            seq=TRAIN_SEQ, batch=TRAIN_BATCH, arch=arch,
+            overrides={"n_layers": layers} if layers else None)],
         cwd=ROOT, env=_cpu_env(), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
 
 
-def dryrun_check_phase(predict: subprocess.Popen) -> dict:
-    """The dry-run's prediction for qwen3-0.6b whole at TRAIN_BATCH x
-    TRAIN_SEQ (bf16 parameters, f32 moments) on a (1, 1) mesh, made on a
-    fake one-rank group in ``predict`` (:func:`start_prediction`), against
-    the same step on the card
+def dryrun_check_row(arch: str, layers, predict: subprocess.Popen) -> dict:
+    """The dry-run's prediction for ``arch`` (cut to ``layers``, or whole)
+    at TRAIN_BATCH x TRAIN_SEQ (bf16 parameters, f32 moments) on a (1, 1)
+    mesh, made on a fake one-rank group in ``predict``
+    (:func:`start_prediction`), against the same step on the card
     on a real one-rank NCCL group: the DTensor step's loss against the
     plain step's; ``FlopCounterMode``'s FLOPs of the plain step (the same
     local ops) against the predicted dot FLOPs; the DTensor step's peak
@@ -2360,7 +2420,9 @@ def dryrun_check_phase(predict: subprocess.Popen) -> dict:
     pred = json.loads(out.strip().splitlines()[-1])
     wait_s = time.perf_counter() - t0
 
-    cfg = get_arch(ARCH)
+    cfg = get_arch(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
     tokens = torch.from_numpy(TokenPipeline(
         cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH).batch_at(0)).to(
             "cuda", torch.int32)
@@ -2418,7 +2480,8 @@ def dryrun_check_phase(predict: subprocess.Popen) -> dict:
     mem, rf = pred["memory"], pred["roofline"]
     median = statistics.median(times)
     res = {
-        "arch": ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "mesh": "1x1",
+        "arch": arch, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "mesh": "1x1", "rules_kind": pred["rules_kind"],
         "predict_trace_s": pred["timings"]["trace_s"],
         "predict_wait_s": wait_s, "moment_dtype": pred["moment_dtype"],
         "loss_plain": plain_loss, "loss_dtensor": loss,
@@ -2481,9 +2544,7 @@ def generate_parity_phase() -> dict:
     out = {}
     for fam, (arch, cut) in cases.items():
         cfg = get_arch(arch).replace(dtype="float32", **cut)
-        tree = P.init_params(build_model(cfg, device="meta").param_defs(),
-                             torch.Generator().manual_seed(SEED_FLOAT),
-                             cfg.dtype, "cpu")
+        tree = parity_tree(cfg)
         prompts, extras = _gen_inputs(cfg, PARITY_BATCH, GEN_PARITY_PROMPT,
                                       SEED_INT)
         max_len = GEN_PARITY_PROMPT + GEN_PARITY_NEW + 1
@@ -2918,7 +2979,7 @@ def main() -> int:
         from repro_torch.configs.base import get_arch
         moe_out, moe_rprf, moe_ckpt = train_moe_phase(train, work)
         moe_out["resume"] = resume_phase(train, moe_ckpt, MOE_CUT)
-        shutil.rmtree(moe_ckpt)  # 31 GB of disk
+        shutil.rmtree(moe_ckpt)  # 19 GB of disk
         emit({"train_moe": moe_out})
         emit({"train_moe_profile": train_profile_phase(analyze, moe_rprf,
                                                        work, "moe_db")})
@@ -2936,12 +2997,13 @@ def main() -> int:
         # the resumed step is the traced step again, from the checkpoint
         hyb_out["resume"]["same_loss_as_traced_step"] = (
             hyb_out["resume"]["history"][0]["loss"] == hyb_out["trace"]["loss"])
-        shutil.rmtree(hyb_ckpt)  # ~14.5 GB of disk
+        shutil.rmtree(hyb_ckpt)  # ~8 GB of disk
         emit({"train_hybrid": hyb_out})
         emit({"train_hybrid_profile": train_profile_phase(
             analyze, hyb_rprf, work, "hybrid_db")})
         emit({"train_xlstm": train_family_phase(
-            get_arch(XLSTM_ARCH), FAMILY_STEPS, SSM_TRAIN_SEQ)})
+            get_arch(XLSTM_ARCH).replace(n_layers=XLSTM_TRAIN_LAYERS),
+            FAMILY_STEPS, SSM_TRAIN_SEQ)})
         emit({"ssm_scan": ssm_scan_phase()})
 
         # -- generation: every family on the card, then card vs CPU

@@ -24,6 +24,25 @@ Ops that DTensor runs at global shapes to derive an output's metadata
 (``_sharding_prop.py``) are run and not counted.  :meth:`OpCostMode.repeat`
 scales what is counted inside it, as ``hlo_cost`` scales a ``while`` body
 by its trip count.
+
+**Loops counted by their trip count.**  A model loop written under
+:func:`~repro_torch.models.layers.counted_loop` (the sLSTM's loop over
+time, one step a position) runs one iteration while an
+:class:`OpCostMode` is active and no gradient is taken, counted ``n``
+times (FLOPs, bytes, collectives), as the reference's ``lax.scan`` body
+is.  The peak is reckoned for what the loop keeps alive: every storage
+the one iteration made that is still alive at its end stands for ``n``
+of them (the stacked outputs) until it is freed, but for the carries the
+loop names, which the next step replaces; and the peak is at least the
+iteration's own peak plus the other ``n - 1`` iterations' kept storages,
+as at the last step of the whole loop.  A loop that takes a gradient
+runs whole, since its backward runs outside the loop.
+
+**Collectives counted apart.**  The collectives run inside a
+:func:`~repro_torch.models.layers.cost_scope`, and those that the
+backward of the autograd nodes made there runs, are also summed under
+its name in ``Cost.coll_by_scope``: the sorted MoE dispatch's
+whole-buffer sums, the port's way of crossing tokens to experts.
 """
 from __future__ import annotations
 
@@ -36,6 +55,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
+
+from repro_torch.models.layers import COST_COUNTERS, Loop
 
 # ops that move no data: views, metadata, allocation without a write
 _FREE = {
@@ -75,8 +96,10 @@ class Cost:
     bytes: float = 0.0
     coll_bytes: float = 0.0
     coll_by_kind: dict = field(default_factory=dict)
+    coll_by_scope: dict = field(default_factory=dict)  # cost_scope()s
     peak_bytes: int = 0
     ops: int = 0
+    loops_repeated: int = 0  # counted_loop()s traced once
 
 
 def _tensors(tree) -> list[torch.Tensor]:
@@ -109,6 +132,8 @@ class OpCostMode(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.cost = Cost()
+        self._scopes: list[str] = []               # open in the forward
+        self._scope_seqs: list[tuple] = []         # (first, end, name)
         self._scale = 1
         self._alive: dict[int, int] = {}
         self._live = 0
@@ -138,6 +163,64 @@ class OpCostMode(TorchDispatchMode):
 
     def _free(self, key: int) -> None:
         self._live -= self._alive.pop(key, 0)
+
+    def __enter__(self):
+        COST_COUNTERS.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        COST_COUNTERS.pop()
+        return super().__exit__(*exc)
+
+    # -- marks (models.layers) ------------------------------------------------
+    @contextlib.contextmanager
+    def loop(self, n: int):
+        """:func:`~repro_torch.models.layers.counted_loop` under this
+        counter (module docstring)."""
+        if n <= 1 or torch.is_grad_enabled():
+            yield Loop(n)
+            return
+        loop = Loop(1)
+        self.cost.loops_repeated += 1
+        before = set(self._alive)
+        outer_peak, self.cost.peak_bytes = self.cost.peak_bytes, self._live
+        with self.repeat(n):
+            yield loop
+        carried = {id(t.untyped_storage()) for t in loop.carried}
+        kept = [k for k in self._alive if k not in before and k not in carried]
+        extra = (n - 1) * sum(self._alive[k] for k in kept)
+        for k in kept:
+            self._alive[k] *= n
+        self.cost.peak_bytes = max(outer_peak, self.cost.peak_bytes + extra)
+        self._live += extra
+
+    @contextlib.contextmanager
+    def scope(self, name: str):
+        """:func:`~repro_torch.models.layers.cost_scope` under this counter:
+        the autograd nodes made inside are those whose sequence numbers
+        fall in ``[first, end)``."""
+        first = torch.autograd._get_sequence_nr()
+        self._scopes.append(name)
+        try:
+            yield
+        finally:
+            self._scopes.pop()
+            self._scope_seqs.append(
+                (first, torch.autograd._get_sequence_nr(), name))
+
+    def _scope(self) -> str | None:
+        """The scope of the op being run: an open one in the forward, or
+        the one that made the autograd node whose backward runs it."""
+        if self._scopes:
+            return self._scopes[-1]
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return None
+        seq = node._sequence_nr()
+        for first, end, name in self._scope_seqs:
+            if first <= seq < end:
+                return name
+        return None
 
     # -- counting -------------------------------------------------------------
     @contextlib.contextmanager
@@ -186,6 +269,10 @@ class OpCostMode(TorchDispatchMode):
         if kind is not None:
             c.coll_bytes += k * op_bytes
             c.coll_by_kind[kind] = c.coll_by_kind.get(kind, 0.0) + k * op_bytes
+            scope = self._scope()
+            if scope is not None:
+                c.coll_by_scope[scope] = (c.coll_by_scope.get(scope, 0.0)
+                                          + k * op_bytes)
             c.bytes += k * op_bytes
             return
         c.bytes += k * (op_bytes + sum(_nbytes(t) for t in outs))

@@ -21,14 +21,18 @@ Usage::
     python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --multipod
     python -m repro_torch.launch.dryrun --all --out runs/dryrun_torch
 
-Ported for the dense, VLM and audio families; a MoE, SSM or hybrid cell
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.  A
-train cell with ``microbatches > 1`` traces one microbatch's forward and
-backward and counts it ``microbatches`` times; the update is counted once.
+Every family runs.  A train cell with ``microbatches > 1`` traces one
+microbatch's forward and backward and counts it ``microbatches`` times;
+the update is counted once.  A microbatch of fewer rows than the batch
+axes' devices (grok-1's 16 on 2x16x16) is split over the minor axes it
+fills (:func:`_microbatch_rules`).  A serving step's loop over positions
+(the sLSTM's) traces one position, counted by the sequence length
+(:func:`~repro_torch.models.layers.counted_loop`).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -55,14 +59,6 @@ from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 # long-context decode requires sub-quadratic history handling: only the
 # SSM/hybrid archs run long_500k (DESIGN.md §Arch-applicability).
 LONG_OK = {"zamba2-7b", "xlstm-350m"}
-
-PORTED_FAMILIES = ("dense", "vlm", "audio")
-NOT_PORTED = {
-    "moe": "ROADMAP.md §1 item 2, the MoE cells (EP/TP-in-expert placement, "
-           "the dispatch's constrain points, all-to-all)",
-    "ssm": "ROADMAP.md §1 item 2, the SSM and hybrid cells",
-    "hybrid": "ROADMAP.md §1 item 2, the SSM and hybrid cells",
-}
 
 
 def cell_is_skipped(arch: str, shape_name: str) -> str | None:
@@ -123,10 +119,6 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     cfg = archs[arch]
     if overrides:
         cfg = cfg.replace(**overrides)
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{arch} ({cfg.family} family): the dry-run of this family is "
-            f"not ported yet: {NOT_PORTED[cfg.family]}")
     shape = SHAPES[shape_name]
     if mesh is None:
         mesh = make_production_mesh(multi_pod=multi_pod)
@@ -204,7 +196,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             make_train_step(model, AdamWConfig(), mesh=mesh,
                             rules=rules)(opt, batch)
         elif kind == "train":
-            _microbatched_step(model, opt, cfg, shape, b_specs, mesh,
+            _microbatched_step(model, opt, cfg, shape, rules, mesh,
                                sizes, microbatches, accum_dtype, cost)
         elif kind == "prefill":
             _serving(model, "prefill")(model, batch)
@@ -234,14 +226,32 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         },
         "roofline": rf.to_dict(),
         "collectives": rf.coll_by_kind,
+        "port_dispatch": _port_dispatch(c, rf, n_chips),
         "op_cost": {"flops": c.flops, "dot_flops": c.dot_flops,
                     "bytes_accessed": c.bytes, "ops": c.ops,
-                    "microbatches_traced": 1},
+                    "microbatches_traced": 1,
+                    "loops_repeated": c.loops_repeated},
         "timings": {"trace_s": trace_s},
         "overrides": overrides or {}, "microbatches": microbatches,
         "moment_dtype": str(moment_dtype).removeprefix("torch."),
         "torch": torch.__version__,
     }
+
+
+def _port_dispatch(c, rf, n_chips: int) -> dict | None:
+    """The sorted MoE dispatch's whole-buffer sums (the ``moe_dispatch``
+    scope), a cost of the port's dispatch and not of the job: their bytes
+    (collective and HBM), and the roofline without them.  ``dominant_is_
+    port_cost`` says that they make the cell's dominant term."""
+    b = c.coll_by_scope.get("moe_dispatch", 0.0)
+    if not b:
+        return None
+    rest = roofline.analyze(dataclasses.replace(
+        c, coll_bytes=c.coll_bytes - b, bytes=c.bytes - b), n_chips=n_chips)
+    return {"collective_bytes": b, "collective_s": b / roofline.LINK_BW,
+            "without": {k: getattr(rest, k) for k in (
+                "compute_s", "memory_s", "collective_s", "dominant")},
+            "dominant_is_port_cost": rest.dominant != rf.dominant}
 
 
 def _serving(model, name: str):
@@ -260,19 +270,37 @@ def _owner(model, name: str):
     return model.get_submodule(".".join(path)), leaf
 
 
-def _microbatched_step(model, opt, cfg, shape, b_specs, mesh, sizes,
+def _microbatch_rules(rules, rows: int):
+    """``rules`` with the batch (and token) axes cut, major first, to those
+    whose devices ``rows`` fill evenly.  XLA pads a microbatch of fewer
+    rows than devices (grok-1's 16 on 32); DTensor cannot flatten such a
+    split, so the major axis holds the rows whole instead: each device
+    still holds ceil(rows / devices) rows, and the axis computes them
+    redundantly where XLA computes padding."""
+    axes = rules.axis("batch")
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    while axes and rows % math.prod(rules.mesh_axis_sizes[a] for a in axes):
+        axes = axes[1:]
+    cut = (axes if len(axes) > 1 else axes[0]) if axes else None
+    return rules.with_overrides(batch=cut, tokens=cut)
+
+
+def _microbatched_step(model, opt, cfg, shape, rules, mesh, sizes,
                        microbatches: int, accum_dtype, cost) -> None:
     """The reference's accumulated step (``loop.py:46-68``): zeroed
     accumulators, one microbatch's loss and gradients added ``microbatches``
     times (traced once, counted that often), their mean, then one AdamW
-    update.  The microbatch's rows are a fresh shard of the batch."""
+    update.  The microbatch's rows are a fresh shard of the batch, placed
+    by :func:`_microbatch_rules`."""
     mb_shape = shape.__class__(shape.name, shape.seq_len,
                                shape.global_batch // microbatches, shape.kind)
+    mb_rules = _microbatch_rules(rules, mb_shape.global_batch)
+    b_specs = batch_specs(cfg, mb_shape, mb_rules)
     mb = {k: _sharded(s, b_specs[k], mesh, sizes)
           for k, s in batch_struct(cfg, mb_shape).items()}
     params = dict(model.named_parameters())
     acc = {n: torch.zeros_like(p, dtype=accum_dtype) for n, p in params.items()}
-    with cost.repeat(microbatches):
+    with cost.repeat(microbatches), set_rules(mesh, mb_rules):
         loss, grads = make_grad_fn(model)(mb)
         for n, g in grads.items():
             acc[n] += g
@@ -341,7 +369,7 @@ def main(argv=None):
     # one fake group of 512 ranks holds both meshes (16x16 on its first 256)
     init_fake_process_group(512)
     os.makedirs(args.out, exist_ok=True)
-    ok = fail = skipped = not_ported = 0
+    ok = fail = skipped = 0
     for multi_pod, arch, shape_name in all_cells():
         mesh_tag = "multi" if multi_pod else "single"
         tag = f"{arch}.{shape_name}.{mesh_tag}"
@@ -362,22 +390,20 @@ def main(argv=None):
             with open(path, "w") as f:
                 json.dump(res, f, indent=2)
             ok += 1
+            port = res["port_dispatch"] or {}
             print(f"OK   {tag:48s} {time.perf_counter()-t0:6.1f}s "
                   f"dom={res['roofline']['dominant']:10s} "
-                  f"mem={res['memory']['peak_per_device_bytes']/2**30:6.2f}GiB",
+                  f"mem={res['memory']['peak_per_device_bytes']/2**30:6.2f}GiB"
+                  + (" (dominant: the port's MoE dispatch)"
+                     if port.get("dominant_is_port_cost") else ""),
                   flush=True)
         except Exception as e:
             with open(path + ".err", "w") as f:
                 f.write(traceback.format_exc())
-            if isinstance(e, NotImplementedError):
-                not_ported += 1
-                print(f"PORT {tag:48s} {str(e)[:120]}", flush=True)
-            else:
-                fail += 1
-                print(f"FAIL {tag:48s} {type(e).__name__}: {str(e)[:120]}",
-                      flush=True)
-    print(f"done: ok={ok} fail={fail} skipped={skipped} "
-          f"not_ported={not_ported}")
+            fail += 1
+            print(f"FAIL {tag:48s} {type(e).__name__}: {str(e)[:120]}",
+                  flush=True)
+    print(f"done: ok={ok} fail={fail} skipped={skipped}")
 
 
 if __name__ == "__main__":

@@ -22,6 +22,7 @@ XLA partitions them; their values are the plain path's.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -29,7 +30,56 @@ import torch.nn.functional as F
 
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.sharding.specs import constrain, from_local, is_sharded
+from repro_torch.sharding.specs import (constrain, from_local, is_sharded,
+                                        local_offset)
+
+
+# ---------------------------------------------------------------------------
+# marks for a cost counter: a loop it may count by its trip count, and a
+# part of the step whose collectives it counts apart
+# ---------------------------------------------------------------------------
+
+# the active cost counters (``analysis.op_cost.OpCostMode`` pushes itself
+# here); each has ``loop(n)`` and ``scope(name)`` context managers
+COST_COUNTERS: list = []
+
+
+class Loop:
+    """What :func:`counted_loop` yields: ``steps``, the iterations to run,
+    and :meth:`carries`."""
+
+    def __init__(self, steps: int):
+        self.steps = steps
+        self.carried: tuple = ()
+
+    def carries(self, *tensors) -> None:
+        """Name the tensors that only carry the state from step to step
+        (each replaces the last): a cost counter counts them once in the
+        peak."""
+        self.carried = tensors
+
+
+@contextlib.contextmanager
+def counted_loop(n: int):
+    """Run a loop of ``n`` like iterations: ``for ... in xs[:loop.steps]``.
+    ``steps`` is ``n``; an active cost counter may make it 1 and count the
+    one iteration ``n`` times."""
+    if not COST_COUNTERS:
+        yield Loop(n)
+        return
+    with COST_COUNTERS[-1].loop(n) as loop:
+        yield loop
+
+
+@contextlib.contextmanager
+def cost_scope(name: str):
+    """An active cost counter counts the collectives run inside, and those
+    of their backward, apart under ``name``."""
+    if not COST_COUNTERS:
+        yield
+        return
+    with COST_COUNTERS[-1].scope(name):
+        yield
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
@@ -212,7 +262,12 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     (B, KVH, G, T) scores, e.g. (B, 1, 1, 1) for ragged rows) are masked
     to ``-inf``; scores and softmax are f32, the probabilities are cast to
     the cache's dtype and multiplied with f32 accumulation.  DTensors
-    split by batch and heads attend shard by shard."""
+    split by batch and heads attend shard by shard; a cache whose
+    positions are split (``kv_seq``, the sequence-split decode) attends
+    shard by shard too, and the shards' maxima and sums are combined
+    across the mesh (:func:`_seq_split_decode`)."""
+    if is_sharded(k_cache, 1):
+        return _seq_split_decode(q, k_cache, v_cache, cache_len)
     local = _shard_local(q, k_cache, v_cache)
     if local is not None:
         (q, k_cache, v_cache), wrap = local
@@ -240,12 +295,78 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     return out
 
 
+def _seq_split_decode(q, k_cache, v_cache, cache_len) -> torch.Tensor:
+    """:func:`decode_attention` over a cache split by position (dim 1) on
+    some mesh dims: each rank scores the query against its own positions
+    (masked past ``cache_len`` by their global index), keeps its maximum,
+    its sum of exponentials and its unnormalised product with V, and the
+    shards combine them, rescaled to the global maximum, across the
+    position dims (the flash-decoding split; a shard with no position
+    under ``cache_len`` adds nothing).  Any other split of the cache must
+    be batch or heads, matched by the query's; else it is made whole.
+    The probabilities are cast to the cache's dtype before they are
+    normalised, not after: in f32 the same, in bf16 within its rounding."""
+    mesh = k_cache.device_mesh
+    pq, pk = list(q.placements), list(k_cache.placements)
+    seq = {i for i, p in enumerate(pk) if p == Shard(1)}
+    for i, (a, b) in enumerate(zip(pq, pk)):
+        if i in seq:
+            pq[i] = Replicate()
+        elif not (a == b and (isinstance(a, Replicate) or a in (
+                Shard(0), Shard(2)))):
+            pq[i] = pk[i] = Replicate()
+    q = q.redistribute(mesh, pq)
+    k_cache = k_cache.redistribute(mesh, pk)
+    v_cache = v_cache.redistribute(mesh, pk)
+    ql, kl, vl = q.to_local(), k_cache.to_local(), v_cache.to_local()
+    B, _, H, hd = ql.shape
+    T, KVH = kl.shape[1], kl.shape[2]
+    G = H // KVH
+    t0 = local_offset(tuple(k_cache.shape), mesh, pk)[1][1]
+    qg = ql.reshape(B, KVH, G, hd) / math.sqrt(hd)
+    s = torch.einsum("bkgd,btkd->bkgt", qg.float(), kl.float())
+    pos = t0 + torch.arange(T, device=ql.device)
+    s = s.masked_fill(~(pos[None, None, None, :] < cache_len), -math.inf)
+    m = s.amax(dim=-1)                                       # (B,KVH,G)
+    p = torch.exp(s - m.masked_fill(m == -math.inf, 0.0)[..., None])
+    acc = torch.einsum("bkgt,btkd->bkgd", p.to(vl.dtype).float(),
+                       vl.float())
+    # (B, KVH, G[, hd]) statistics, placed as the query's batch and heads
+    stats = [Shard(1) if pl == Shard(2) else pl for pl in pq]
+    shape = (q.shape[0], k_cache.shape[2], G)
+
+    def across(local, op):
+        part = [Partial(op) if i in seq else pl for i, pl in enumerate(stats)]
+        return from_local(local, mesh, part, shape + tuple(local.shape[3:])
+                          ).redistribute(mesh, stats).to_local()
+
+    m_all = across(m, "max")
+    corr = torch.exp(m - m_all)                   # 0 where a shard is empty
+    l_all = across(p.sum(dim=-1) * corr, "sum")
+    acc_all = across(acc * corr[..., None], "sum")
+    out = (acc_all / l_all[..., None]).reshape(B, 1, H, hd).to(ql.dtype)
+    return from_local(out, mesh, pq, tuple(q.shape))
+
+
 def kv_write(kv, k, v, at: int) -> None:
     """Write ``k`` and ``v`` (B, S, KVH, hd) into rows ``at..at+S-1`` of
     the cache buffers ``kv = (k_buf, v_buf)`` (B, T, KVH, hd), in place
-    and in the buffers' dtype."""
-    kv[0][:, at:at + k.shape[1]] = k
-    kv[1][:, at:at + v.shape[1]] = v
+    and in the buffers' dtype.  A buffer split by position writes only
+    the rows its own shard holds, from the new rows placed as the buffer
+    is but whole in position: no shard of the cache moves."""
+    for buf, new in zip(kv, (k, v)):
+        if not is_sharded(buf, 1):
+            buf[:, at:at + new.shape[1]] = new
+            continue
+        mesh = buf.device_mesh
+        pb = list(buf.placements)
+        local = buf.to_local()
+        t0 = local_offset(tuple(buf.shape), mesh, pb)[1][1]
+        lo, hi = max(at, t0), min(at + new.shape[1], t0 + local.shape[1])
+        new = new.redistribute(mesh, [Replicate() if p == Shard(1) else p
+                                      for p in pb]).to_local()
+        if lo < hi:
+            local[:, lo - t0:hi - t0] = new[:, lo - at:hi - at]
 
 
 def logits_f32(x, w) -> torch.Tensor:

@@ -42,7 +42,8 @@ from repro_torch.models.layers import (decode_attention, embed,
                                        kv_write, logits_f32, next_token_xent,
                                        rms_norm, rope)
 from repro_torch.models.params import ParamDef, torch_dtype
-from repro_torch.sharding.specs import constrain, current_rules, zeros
+from repro_torch.sharding.specs import (constrain, current_rules,
+                                        is_sharded, zeros)
 
 
 def _kv_expand(cfg: ModelConfig) -> bool:
@@ -138,7 +139,9 @@ class Block(nn.Module):
                                    mode=cfg.causal_mode)
         else:
             n = cache_len + 1
-            ka, va = kv[0][:, :n], kv[1][:, :n]
+            # a cache split by position attends whole, masked past n
+            ka, va = ((kv[0], kv[1]) if is_sharded(kv[0], 1)
+                      else (kv[0][:, :n], kv[1][:, :n]))
             if expand:
                 ka, va = _expand(cfg, ka, "kv_seq"), _expand(cfg, va, "kv_seq")
             attn = decode_attention(q, ka, va, n)
@@ -156,7 +159,8 @@ class Block(nn.Module):
                                   self.we_down, top_k=cfg.top_k,
                                   capacity_factor=cfg.capacity_factor,
                                   act=cfg.act)
-            return x + out, moe_mod.moe_aux_loss(probs)
+            return (x + constrain(out, "batch", "seq", "embed"),
+                    moe_mod.moe_aux_loss(probs))
         return x + constrain(glu_mlp(h, self.w_gate, self.w_up, self.w_down,
                                      cfg.act), "batch", "seq", "embed"), None
 

@@ -40,6 +40,19 @@ Python int.  Parameter names and shapes are the reference's:
 its stacked groups (``models.params``), and the hybrid's ``shared_attn``
 is the port's :class:`~repro_torch.models.lm.Block` on the same config,
 one parameter set applied before every group.
+
+On DTensors (the dry-run and a mesh of real ranks) the blocks keep the
+reference's constraints (the Mamba2 input ``xs`` on ``ssm_inner``, the
+residual stream after the embedding) and hold each block's output at the
+residual's placement, as :mod:`~repro_torch.models.lm`'s sublayers are.
+The scans run shard by shard, on plain local tensors: the chunked scan
+over the batch rows, heads and value channels that split its values
+(``_rnn_sharded``), the sLSTM's loop over the rows and heads that split
+its gate inputs; DTensor plans no einsum inside them.  Heads that do not
+split the ``model`` axis (xlstm's 4 on a 16-wide one) are made whole
+first.  The sLSTM's loop over positions is a
+:func:`~repro_torch.models.layers.counted_loop`: a dry-run of a
+serving step traces one position and counts it by the sequence length.
 """
 from __future__ import annotations
 
@@ -48,12 +61,16 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import logits_f32, next_token_xent, rms_norm
+from repro_torch.models.layers import (counted_loop, embed, heads,
+                                       logits_f32, next_token_xent, rms_norm)
 from repro_torch.models.lm import Block, _param, _params
 from repro_torch.models.params import ParamDef, torch_dtype
+from repro_torch.sharding.specs import (constrain, from_local, shardwise,
+                                        zeros)
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +114,8 @@ def linear_rnn_chunked(log_a, v, k, q, h0, *, chunk: int):
     tail is padded with zero log-decay and zero inputs, which leave the
     state unchanged.
     """
+    if isinstance(v, DTensor):
+        return _rnn_sharded(log_a, v, k, q, h0, chunk=chunk)
     B, S, H, P = v.shape
     c = min(chunk, S)
     nc = -(-S // c)
@@ -117,6 +136,56 @@ def linear_rnn_chunked(log_a, v, k, q, h0, *, chunk: int):
                           preserve_rng_state=False)
         ys.append(y)
     return torch.cat(ys, dim=1)[:, :S], h
+
+
+def _shard_roles(t: DTensor, dims: dict) -> list:
+    """Per mesh dim, the role (a key of ``dims``, which maps roles to
+    tensor dims of ``t``) under which ``t`` is split there, or None where
+    it must be whole."""
+    return [next((r for r, d in dims.items() if p == Shard(d)), None)
+            for p in t.placements]
+
+
+def _local_shard(t, mesh, roles: list, dims: dict):
+    """``(local, placed)``: the shard of ``t`` (a DTensor, or a plain
+    tensor taken as replicated) placed, on each mesh dim, as
+    ``Shard(dims[role])`` for that dim's role, or whole where ``t`` lacks
+    the role's dim or the dim has none.  Where ``t`` is whole but the role
+    splits the work, its gradient is a partial sum over that dim."""
+    pl, grad = [], []
+    for role in roles:
+        d = dims.get(role)
+        pl.append(Replicate() if d is None else Shard(d))
+        grad.append(Partial() if role is not None and d is None else pl[-1])
+    if not isinstance(t, DTensor):
+        t = from_local(t, mesh, (Replicate(),) * mesh.ndim, tuple(t.shape))
+    return t.redistribute(mesh, pl).to_local(grad_placements=grad), pl
+
+
+def _rnn_sharded(log_a, v, k, q, h0, *, chunk: int):
+    """:func:`linear_rnn_chunked` on DTensors, run shard by shard: the
+    recurrence is independent across batch rows, heads and value
+    channels, so each rank scans its own (rows, heads, channels) of ``v``
+    as ``v`` is split (a split of the sequence is made whole first), with
+    the decays, keys and queries narrowed alike and ``h0`` resharded to
+    match.  No DTensor einsum is planned."""
+    mesh = v.device_mesh
+    B, S, H, P = v.shape
+    Hk, N = k.shape[2], k.shape[3]
+    roles = _shard_roles(v, {"batch": 0, "heads": 2, "chan": 3})
+
+    def local(t, dims):
+        return _local_shard(t, mesh, roles, dims)
+
+    v_l, pv = local(v, {"batch": 0, "heads": 2, "chan": 3})
+    la_l, _ = local(log_a, {"batch": 0, "heads": 2})
+    kd = {"batch": 0, "heads": 2} if Hk == H else {"batch": 0}
+    k_l, _ = local(k, kd)
+    q_l, _ = local(q, kd)
+    h_l, ph = local(h0, {"batch": 0, "heads": 1, "chan": 2})
+    y, h = linear_rnn_chunked(la_l, v_l, k_l, q_l, h_l, chunk=chunk)
+    return (from_local(y, mesh, pv, (B, S, H, P)),
+            from_local(h, mesh, ph, (B, H, P, N)))
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +238,7 @@ def mamba2_block(p, x, cfg: ModelConfig, state=None):
                                     dim=-1)
     conv_state = None if state is None else state["conv"]
     xs, new_conv = _causal_conv(xs, p["conv_w"], p["conv_b"], conv_state)
-    xs = F.silu(xs)
+    xs = constrain(F.silu(xs), "batch", "seq", "ssm_inner")
     Bv = F.silu(Bv).float()
     Cv = F.silu(Cv).float()
     dt = F.softplus(dt.float() + p["dt_bias"].float())
@@ -184,7 +253,7 @@ def mamba2_block(p, x, cfg: ModelConfig, state=None):
     y = y + p["D_skip"].float()[None, None, :, None] * xh
     y = y.reshape(B, S, DI).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    out = constrain(y @ p["out_proj"], "batch", "seq", "embed")
     new_state = None
     if state is not None:
         new_state = {"h": h_out, "conv": new_conv.to(state["conv"].dtype)}
@@ -217,12 +286,13 @@ def mlstm_block(p, x, cfg: ModelConfig, state=None):
     N = DI // H
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     xi, z = torch.chunk(h @ p["up"], 2, dim=-1)
-    q = (xi @ p["wq"]).reshape(B, S, H, N)
-    k = (xi @ p["wk"]).reshape(B, S, H, N) / math.sqrt(N)
-    v = (xi @ p["wv"]).reshape(B, S, H, N)
+    # whole heads on each shard (xlstm's 4 do not split a 16-wide axis)
+    q = heads(xi @ p["wq"], H, N, "heads")
+    k = heads(xi @ p["wk"], H, N, "heads") / math.sqrt(N)
+    v = heads(xi @ p["wv"], H, N, "heads")
     gates = (xi @ p["w_if"]).float()
     i_g = torch.sigmoid(gates[..., :H])                          # (B,S,H)
-    log_f = F.logsigmoid(gates[..., H:])
+    log_f = shardwise(F.logsigmoid, gates[..., H:])
     # fold normalizer: value channel N+1 carries the input gate itself
     v_aug = torch.cat([v.float() * i_g[..., None], i_g[..., None]], dim=-1)
     h0 = (torch.zeros((B, H, N + 1, N), device=x.device) if state is None
@@ -231,9 +301,11 @@ def mlstm_block(p, x, cfg: ModelConfig, state=None):
                                       chunk=cfg.ssm_chunk)
     denom = torch.maximum(y_aug[..., N].abs(),
                           torch.ones((), device=x.device))[..., None]
-    y = (y_aug[..., :N] / denom).reshape(B, S, DI).to(x.dtype)
+    # whole heads again, so that the gradient's view back to heads holds
+    y = constrain((y_aug[..., :N] / denom).reshape(B, S, DI),
+                  "batch", "seq", "heads").to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["down"]
+    out = constrain(y @ p["down"], "batch", "seq", "embed")
     new_state = None if state is None else {"h": h_out}
     return x + out, new_state
 
@@ -257,31 +329,59 @@ def slstm_block(p, x, cfg: ModelConfig, state=None):
     H = cfg.n_heads
     hd = D // H
     h_in = rms_norm(x, p["ln"], cfg.norm_eps)
-    pre = (h_in @ p["w_gates"]).reshape(B, S, H, 4 * hd).float()
+    pre = heads(h_in @ p["w_gates"], H, 4 * hd, "heads").float()
     if state is None:
         c = torch.zeros((B, H, hd), device=x.device)
         n = torch.ones((B, H, hd), device=x.device)
         hp = torch.zeros((B, H, hd), device=x.device)
     else:
         c, n, hp = (state[k].float() for k in ("c", "n", "hp"))
-    R = p["r_gates"].float()
-    one = torch.ones((), device=x.device)
+    y, c, n, hp = _slstm_scan(pre, p["r_gates"].float(), c, n, hp)
+    y = constrain(y.reshape(B, S, D), "batch", "seq", "heads")
+    out = constrain(y.to(x.dtype) @ p["out"], "batch", "seq", "embed")
+    new_state = None if state is None else {"c": c, "n": n, "hp": hp}
+    return x + out, new_state
+
+
+def _slstm_scan(pre, R, c, n, hp):
+    """The sLSTM recurrence over time: ``pre`` (B, S, H, 4hd) f32 gate
+    inputs, ``R`` (H, hd, 4hd) the recurrent weights, the carry ``c``,
+    ``n``, ``hp`` (B, H, hd).  Returns ``(y (B, S, H, hd), c, n, hp)``.
+    On DTensors it runs shard by shard over the rows and heads that split
+    ``pre`` (the recurrence mixes a head's channels, so nothing else)."""
+    if isinstance(pre, DTensor):
+        mesh = pre.device_mesh
+        B, S, H, G = pre.shape
+        roles = _shard_roles(pre, {"batch": 0, "heads": 2})
+
+        def local(t, dims):
+            return _local_shard(t, mesh, roles, dims)
+
+        pre_l, pp = local(pre, {"batch": 0, "heads": 2})
+        R_l, _ = local(R, {"heads": 0})
+        (c, pc), (n, _), (hp, _) = (local(t, {"batch": 0, "heads": 1})
+                                    for t in (c, n, hp))
+        y, c, n, hp = _slstm_scan(pre_l, R_l, c, n, hp)
+        carry = (B, H, G // 4)
+        return (from_local(y, mesh, pp, (B, S, H, G // 4)),
+                *(from_local(t, mesh, pc, carry) for t in (c, n, hp)))
+    one = torch.ones((), device=pre.device)
     ys = []
     # ``unbind``'s backward is one stack; indexing ``pre[:, t]`` would fill
     # and add a whole (B, S, H, 4hd) gradient at every step
-    for pre_t in pre.unbind(1):
-        g = pre_t + torch.einsum("bhd,hdk->bhk", hp, R)         # (B,H,4hd)
-        i_g, f_g, z_g, o_g = torch.chunk(g, 4, dim=-1)
-        i_g = torch.sigmoid(i_g)
-        f_g = torch.sigmoid(f_g)
-        c = f_g * c + i_g * torch.tanh(z_g)
-        n = f_g * n + i_g
-        hp = torch.sigmoid(o_g) * c / torch.maximum(n, one)
-        ys.append(hp)
-    y = torch.stack(ys, dim=1).reshape(B, S, D).to(x.dtype)
-    out = y @ p["out"]
-    new_state = None if state is None else {"c": c, "n": n, "hp": hp}
-    return x + out, new_state
+    steps = pre.unbind(1)
+    with counted_loop(len(steps)) as loop:  # the dry-run may trace one
+        for pre_t in steps[:loop.steps]:
+            g = pre_t + torch.einsum("bhd,hdk->bhk", hp, R)     # (B,H,4hd)
+            i_g, f_g, z_g, o_g = torch.chunk(g, 4, dim=-1)
+            i_g = torch.sigmoid(i_g)
+            f_g = torch.sigmoid(f_g)
+            c = f_g * c + i_g * torch.tanh(z_g)
+            n = f_g * n + i_g
+            hp = torch.sigmoid(o_g) * c / torch.maximum(n, one)
+            ys.append(hp)
+        loop.carries(c, n)
+    return torch.stack(ys * (len(steps) // len(ys)), dim=1), c, n, hp
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +444,8 @@ class _RecurrentLM(nn.Module):
                 "lm_head": ParamDef((D, V), ("fsdp", "vocab"))}
 
     def _embed_in(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens.long()].to(torch_dtype(self.cfg.dtype))
+        x = constrain(embed(tokens, self.embed), "batch", "seq", "embed")
+        return x.to(torch_dtype(self.cfg.dtype))
 
     def _layer(self, blk: nn.Module, x: torch.Tensor, states=None,
                i: int = 0, remat: bool = True) -> torch.Tensor:
@@ -487,13 +588,16 @@ class MambaLM(_RecurrentLM):
         L, K, DI = cfg.n_layers, cfg.ssm_conv, cfg.d_inner
         dt = torch_dtype(cfg.dtype)
         cache = {"ssm": {
-            "h": torch.zeros((L, B, H, P, N), dtype=torch.float32,
-                             device=device),
-            "conv": torch.zeros((L, B, K - 1, DI), dtype=dt, device=device)}}
+            "h": zeros((L, B, H, P, N), ("layers", "batch", None,
+                                         "ssm_inner", "ssm_state"),
+                       torch.float32, device),
+            "conv": zeros((L, B, K - 1, DI), ("layers", "batch", None,
+                                              "ssm_inner"), dt, device)}}
         if cfg.attn_every:
             shape = (self.n_attn_apps, B, max_len, cfg.n_kv_heads, cfg.hd)
             cache["attn_k"], cache["attn_v"] = (
-                torch.zeros(shape, dtype=dt, device=device) for _ in range(2))
+                zeros(shape, (None, "batch", "kv_seq", "kv_heads",
+                              "head_dim"), dt, device) for _ in range(2))
         return cache
 
     def cache_defs(self, batch_size: int, max_len: int) -> dict:
@@ -579,13 +683,15 @@ class XLSTMLM(_RecurrentLM):
         N, hd = cfg.d_inner // H, cfg.d_model // H
         n_run = (min(self.n_slstm * self.per_group, self.n_mlstm)
                  if self.n_slstm else self.n_mlstm)
-        f32 = dict(dtype=torch.float32, device=device)
         s_shape = (self.n_slstm, B, H, hd)
+        s_log = ("layers", "batch", None, None)
         return {"ssm": {
-            "m": {"h": torch.zeros((n_run, B, H, N + 1, N), **f32)},
-            "s": {"c": torch.zeros(s_shape, **f32),
-                  "n": torch.ones(s_shape, **f32),
-                  "hp": torch.zeros(s_shape, **f32)}}}
+            "m": {"h": zeros((n_run, B, H, N + 1, N),
+                             ("layers", "batch", None, None, None),
+                             torch.float32, device)},
+            "s": {"c": zeros(s_shape, s_log, torch.float32, device),
+                  "n": zeros(s_shape, s_log, torch.float32, device) + 1.0,
+                  "hp": zeros(s_shape, s_log, torch.float32, device)}}}
 
     def cache_defs(self, batch_size: int, max_len: int) -> dict:
         """The reference's cache layout: ``ssm`` ``m`` ``h`` (n_mlstm, B,

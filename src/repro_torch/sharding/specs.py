@@ -24,7 +24,6 @@ or an op's sharding strategy says so, and an op without a strategy raises.
 from __future__ import annotations
 
 import contextlib
-import threading
 from dataclasses import dataclass, field, replace
 
 
@@ -99,20 +98,24 @@ def decode_rules(mesh_axis_sizes: dict, *, kv_seq_shard: bool = False,
     return r.with_overrides(kv_seq=None, seq=None)
 
 
-# -- thread-local active (mesh, rules) ---------------------------------------
+# -- the active (mesh, rules), process-wide --------------------------------
 
-class _Ctx(threading.local):
+class _Ctx:
     mesh = None
     rules: ShardingRules | None = None
 
 
+# process-wide, not thread-local: on a card the autograd engine runs the
+# backward, and so a checkpointed block's recomputation, on a thread of
+# its own, which must see the rules the forward ran under
 _ctx = _Ctx()
 
 
 @contextlib.contextmanager
 def set_rules(mesh, rules: ShardingRules):
-    """Make ``(mesh, rules)`` the active pair for this thread; plain
-    tensors meeting DTensors count as replicated meanwhile."""
+    """Make ``(mesh, rules)`` the active pair for the process (the
+    backward's threads too); plain tensors meeting DTensors count as
+    replicated meanwhile."""
     from torch.distributed.tensor.experimental import implicit_replication
     old = (_ctx.mesh, _ctx.rules)
     _ctx.mesh, _ctx.rules = mesh, rules
@@ -283,6 +286,65 @@ def from_local(local, mesh, placement: tuple, shape: tuple):
         acc *= n
     return DTensor.from_local(local, mesh, placement, run_check=False,
                               shape=tuple(shape), stride=tuple(reversed(stride)))
+
+
+def local_offset(shape: tuple, mesh, placement: tuple) -> tuple:
+    """``(local shape, global offset)`` of this rank's shard of a tensor
+    of global ``shape`` placed by ``placement`` (DTensor's chunking)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape_l, off = compute_local_shape_and_global_offset(
+        tuple(shape), mesh, tuple(placement))
+    return tuple(shape_l), tuple(off)
+
+
+def _sum_partials_fn():
+    import torch
+
+    from torch.distributed.tensor import Replicate
+
+    class SumPartials(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, local, mesh, source, target, shape):
+            ctx.mesh, ctx.source = mesh, source
+            return from_local(local, mesh, source, shape).redistribute(
+                mesh, target)
+
+        @staticmethod
+        def backward(ctx, grad):
+            # each rank's contribution to a sum gets the whole gradient
+            grad = grad.redistribute(ctx.mesh, [
+                Replicate() if p.is_partial() else p for p in ctx.source])
+            return grad.to_local(), None, None, None, None
+
+    return SumPartials
+
+
+_SumPartials = _sum_partials_fn()
+
+
+def sum_partials(local, mesh, source: tuple, target: tuple, shape: tuple):
+    """The DTensor of global ``shape`` placed by ``target`` whose value is
+    the sum, over each ``Partial`` mesh dim of ``source``, of every rank's
+    ``local``: a reduce-scatter or all-reduce.  The gradient of ``local``
+    is the whole gradient on each ``Partial`` dim, as ``from_local``'s is
+    in newer torch (older ones divide it by the dim's size)."""
+    return _SumPartials.apply(local, mesh, tuple(source), tuple(target),
+                              tuple(shape))
+
+
+def shardwise(fn, t):
+    """An elementwise ``fn`` of a DTensor ``t`` computed on each shard and
+    placed as ``t`` (a partial sum made whole first), for ops DTensor has
+    no strategy for (``log_sigmoid``'s backward); on a plain tensor,
+    ``fn(t)``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        return fn(t)
+    mesh = t.device_mesh
+    pl = tuple(Replicate() if p.is_partial() else p for p in t.placements)
+    t = t.redistribute(mesh, pl)
+    return from_local(fn(t.to_local()), mesh, pl, tuple(t.shape))
 
 
 def distribute(t, logical: tuple, mesh, rules: ShardingRules):

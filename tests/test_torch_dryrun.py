@@ -5,7 +5,8 @@ and ``mini_decode`` of a reduced qwen3-0.6b on a (2, 4) and a (2, 2, 2)
 mesh), with ``mini_prefill`` and the reduced llama-3.2-vision-11b and
 whisper-small beside them, run in both packages, each in a subprocess
 (the port on an 8-rank fake process group, the reference on 8 forced
-host devices):
+host devices; ``tests/test_torch_dryrun_families.py`` runs the MoE, SSM
+and hybrid families through the same two templates):
 
 * ``memory.argument_bytes`` equals the reference's ``argument_bytes``
   exactly (parameters, moments and the int32 step, or the cache with its
@@ -22,8 +23,7 @@ host devices):
   instructions alone;
 * the collective bytes are positive wherever the reference's are.
 
-The cell list and the skips equal the reference's, a MoE, SSM or hybrid
-cell raises ``NotImplementedError`` naming its ROADMAP item, and the
+The cell list and the skips equal the reference's, and the
 counterparts of ``tests/test_roofline.py`` hold for
 :mod:`repro_torch.analysis.op_cost` and the Hopper roofline.
 """
@@ -39,6 +39,7 @@ import torch
 from repro_torch.analysis import roofline
 from repro_torch.analysis.op_cost import OpCostMode
 from repro_torch.launch import dryrun
+from repro_torch.models.layers import cost_scope, counted_loop
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ("qwen3-0.6b", "llama-3.2-vision-11b", "whisper-small")
@@ -52,8 +53,8 @@ _SETUP = """
     import json
     import {pkg}.configs.base as base
     archs = base.load_all()
-    for a in {archs!r}:
-        archs[a] = base.reduced(archs[a])
+    for a, over in {archs!r}.items():
+        archs[a] = base.reduced(archs[a]).replace(**over)
     for name, (seq, batch, kind) in {mini!r}.items():
         base.SHAPES[name] = base.ShapeConfig(name, seq, batch, kind)
 """
@@ -62,11 +63,9 @@ PORT = _SETUP + """
     from repro_torch.launch import dryrun as dr
     from repro_torch.launch.mesh import make_host_mesh
     meshes = {{"2x4": make_host_mesh(2, 4), "2x2x2": make_host_mesh(2, 2, 2)}}
-    for arch in {archs!r}:
-        for shape in {mini!r}:
-            for m, mesh in meshes.items():
-                r = dr.dryrun_cell(arch, shape, mesh=mesh)
-                print(json.dumps({{"cell": [arch, shape, m], "res": r}}))
+    for arch, shape, m in {cells!r}:
+        r = dr.dryrun_cell(arch, shape, mesh=meshes[m])
+        print(json.dumps({{"cell": [arch, shape, m], "res": r}}))
 """
 
 REFERENCE = _SETUP + """
@@ -100,12 +99,10 @@ REFERENCE = _SETUP + """
         return analyze(compiled, **kw)
 
     dr.roofline.analyze = counting
-    for arch in {archs!r}:
-        for shape in {mini!r}:
-            for m in ("2x4", "2x2x2"):
-                r = dr.dryrun_cell(arch, shape, multi_pod=m == "2x2x2")
-                r["dot_flops"] = dots["last"]
-                print(json.dumps({{"cell": [arch, shape, m], "res": r}}))
+    for arch, shape, m in {cells!r}:
+        r = dr.dryrun_cell(arch, shape, multi_pod=m == "2x2x2")
+        r["dot_flops"] = dots["last"]
+        print(json.dumps({{"cell": [arch, shape, m], "res": r}}))
     cells = [[mp, a, s] for mp in (False, True)
              for a in sorted(base.load_all()) for s in base.SHAPES
              if not s.startswith("mini")]
@@ -114,10 +111,14 @@ REFERENCE = _SETUP + """
 """
 
 
-def _start(code: str, pkg: str, env_extra: dict) -> subprocess.Popen:
+def _start(code: str, pkg: str, env_extra: dict, archs: dict, mini: dict,
+           cells: list) -> subprocess.Popen:
+    """``code`` in a subprocess, for ``cells`` of the reduced ``archs``
+    (each with its overrides) and the ``mini`` shapes."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu", **env_extra)
-    src = textwrap.dedent(code.format(pkg=pkg, archs=ARCHS, mini=MINI))
+    src = textwrap.dedent(code.format(pkg=pkg, archs=archs, mini=mini,
+                                      cells=cells))
     return subprocess.Popen([sys.executable, "-c", src], cwd=REPO, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
@@ -130,18 +131,25 @@ def _collect(proc: subprocess.Popen) -> list[dict]:
             if line.startswith("{")]
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """Both packages' results of every mini cell, the two subprocesses
-    run side by side."""
-    port = _start(PORT, "repro_torch", {})
+def run_both(archs: dict, mini: dict, cells: list):
+    """Both packages' results of ``cells``, the two subprocesses run side
+    by side: the port's and the reference's, by cell, and the
+    reference's listing of every production cell and its skip."""
+    port = _start(PORT, "repro_torch", {}, archs, mini, cells)
     ref = _start(REFERENCE, "repro", {
-        "XLA_FLAGS": "--xla_force_host_platform_device_count=8"})
+        "XLA_FLAGS": "--xla_force_host_platform_device_count=8"},
+        archs, mini, cells)
     p, r = _collect(port), _collect(ref)
-    cells = {tuple(x["cell"]): x["res"] for x in p}
+    pcells = {tuple(x["cell"]): x["res"] for x in p}
     rcells = {tuple(x["cell"]): x["res"] for x in r if "cell" in x}
     listing = next(x for x in r if "cells" in x)
-    return cells, rcells, listing
+    return pcells, rcells, listing
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Both packages' results of every mini cell."""
+    return run_both({a: {} for a in ARCHS}, MINI, CELLS)
 
 
 @pytest.mark.parametrize("cell", CELLS, ids="-".join)
@@ -208,13 +216,6 @@ def test_cells_and_skips_equal_reference(runs):
         listing["skips"]
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "grok-1-314b",
-                                  "zamba2-7b", "xlstm-350m"])
-def test_unported_families_raise_naming_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 2"):
-        dryrun.dryrun_cell(arch, "train_4k")
-
-
 def _count(fn, *args) -> "OpCostMode":
     mode = OpCostMode()
     with mode:
@@ -254,6 +255,42 @@ def test_repeat_scales_what_it_counts():
             x @ x
         x @ x
     assert mode.cost.dot_flops == 9 * 2 * 64 ** 3
+
+
+def test_scope_counts_collectives_and_their_backward_apart():
+    all_reduce = torch.ops._c10d_functional.all_reduce
+
+    class Sum(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return all_reduce(t, "sum", "0")
+
+        @staticmethod
+        def backward(ctx, g):
+            return all_reduce(g, "sum", "0")
+
+    x = torch.empty(256, device="meta", requires_grad=True)  # 1 KiB
+    mode = OpCostMode()
+    with mode:
+        with cost_scope("dispatch"):
+            y = Sum.apply(x * 2)
+        Sum.apply(y * 3).sum().backward()
+    assert mode.cost.coll_by_kind == {"all-reduce": 4 * 1024}
+    assert mode.cost.coll_by_scope == {"dispatch": 2 * 1024}
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_counted_loop_traces_one_iteration_without_gradient(grad):
+    x = torch.empty(64, 64, device="meta", requires_grad=grad)
+    mode = OpCostMode()
+    with mode, torch.set_grad_enabled(grad), counted_loop(8) as loop:
+        for _ in range(loop.steps):
+            x @ x
+    assert loop.steps == (8 if grad else 1)
+    assert mode.cost.loops_repeated == (0 if grad else 1)
+    assert mode.cost.dot_flops == 8 * 2 * 64 ** 3
+    with counted_loop(8) as loop:  # no counter active
+        assert loop.steps == 8
 
 
 def test_peak_counts_live_storage():

@@ -15,6 +15,7 @@ held against the JAX package's on the CPU.
 
 No process group is started here.
 """
+import threading
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -37,7 +38,8 @@ from repro_torch.models import params as P
 from repro_torch.models.api import (batch_logical, batch_specs, batch_struct,
                                     build_model, cache_struct_and_specs,
                                     rules_for)
-from repro_torch.sharding.specs import local_shape, placements
+from repro_torch.sharding.specs import (current_rules, local_shape,
+                                        placements, set_rules, train_rules)
 
 ARCHS = sorted(rload_all())
 KINDS = ("train", "prefill", "decode", "decode_sp")
@@ -166,3 +168,16 @@ def test_batch_and_cache_structs_match_reference(arch, shape, mesh):
             assert b == _spec(rb_)
 
     walk(s, sp, rs, rsp)
+
+
+def test_rules_are_seen_by_other_threads():
+    """On a card the autograd engine runs the backward, and with it a
+    checkpointed block's recomputation, on a thread of its own: the rules
+    the forward ran under must be the ones it sees."""
+    rules = train_rules({"data": 2, "model": 4})
+    seen = []
+    with set_rules(None, rules):
+        t = threading.Thread(target=lambda: seen.append(current_rules()))
+        t.start()
+        t.join()
+    assert seen == [rules] and current_rules() is None
