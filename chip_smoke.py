@@ -71,7 +71,17 @@ read just after:
    calls per op.  ``watch`` — ``serve watch`` (no card), started before
    the integer ingest publishes, against the numpy database: one report per
    epoch it saw, the last the 48-profile epoch with no regression; the
-   seconds from each epoch's publish to its report.
+   seconds from each epoch's publish to its report.  ``chaos`` — the
+   replica-failure drill (no card: a subprocess with
+   ``CUDA_VISIBLE_DEVICES=""``) on the integer database the card wrote:
+   ``ShardedQueryServer`` with 3 shards of 2 replicas, hedged reads armed
+   and a 2 s hung-peer kill, serves mixed batches of 25 requests once
+   cold, for 3 s unfaulted, then 4 s under
+   ``serve.chaos.default_schedule(3)`` (a worker SIGKILLed, a peer's
+   requests dropped, a peer stalled): no
+   ``QueryError``, every reply byte-equal to the in-process
+   ``QueryServer``'s, the respawn and failover counters positive; the
+   median, p95 and longest batch ms of each window.
 4. ``determinism`` — one inclusive column scanned alone and inside the
    main path's batch gives bitwise-equal results; 10 launches of
    ``blockscan`` on each of the main path's scan inputs, of ``segstats`` on
@@ -213,8 +223,21 @@ read just after:
     within 15% of the predicted one, the parameters' and moments' bytes
     equal to the predicted argument bytes less the batch and the int32
     step, and the median step no faster than the roofline bound.
-    ``phase_seconds`` gives each phase's seconds.  ``python3 chip_smoke.py
-    --dryrun-only`` runs these two phases alone (and is not the smoke).
+    ``python3 chip_smoke.py --dryrun-only`` runs these two phases alone
+    (and is not the smoke).
+15. ``elastic`` — checkpoints of DTensor state across meshes, on a
+    one-rank NCCL group: qwen3-0.6b whole in f32 at batch 8 x 128, a
+    ``Trainer`` on a (1, 1) mesh takes two AdamW steps, saves with
+    ``async_save`` (each DTensor gathered whole) and takes the third step
+    beside the write; the checkpoint is restored onto a fresh (1, 1) mesh
+    under the FSDP rules (``restore(shardings=...)``) and into a model
+    with no mesh, and each takes the third step.  Beside it, 8 CPU
+    ``gloo`` ranks in a subprocess train the reduced model (1 layer) on a
+    (2, 4) mesh, save and take their third step; the card restores that
+    checkpoint onto its (1, 1) mesh.  Every third-step loss within 1e-4
+    of its uninterrupted one (the gap and bit-equality printed); the
+    checkpoint's bytes, the gather-and-copy, commit and restore seconds.
+    ``phase_seconds`` gives each phase's seconds.
 
 Every line before the last is one JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero without
@@ -306,6 +329,21 @@ CHECK_ROWS = ((ARCH, None), (MOE_ARCH, MOE_LAYERS))
 CHECK_LOSS_TOL = 1e-5   # the DTensor step's loss against the plain step's
 CHECK_PEAK_RTOL = 0.15  # max_memory_allocated against the predicted peak
 CHECK_STEPS = 5         # timed DTensor steps after the checked one
+# elastic: the next step after a restore against the uninterrupted one;
+# the cross-size leg's CPU ranks, their mesh and batch (reduced, 1 layer)
+ELASTIC_TOL = 1e-4
+ELASTIC_CPU_MESH, ELASTIC_CPU_SEQ, ELASTIC_CPU_BATCH = (2, 4), 16, 8
+# chaos: 3 shards of 2 replicas each under default_schedule(3); load for
+# CHAOS_CALM_S unfaulted, then CHAOS_SPAN_S under the schedule, batches of
+# CHAOS_BATCH mixed requests
+CHAOS_SHARDS, CHAOS_REPLICAS, CHAOS_BATCH = 3, 2, 25
+CHAOS_CALM_S, CHAOS_SPAN_S = 3.0, 4.0
+# hedged reads armed, as the reference's serve_load chaos leg arms them
+# (a single-owner read a drop swallowed goes to the next replica), and a
+# peer with work unanswered for CHAOS_HANG_KILL_S presumed hung (a
+# scattered read it swallowed is replayed after the kill; the default
+# 30 s would be most of the phase)
+CHAOS_HEDGE_MS, CHAOS_HANG_KILL_S = 50.0, 2.0
 
 
 class SmokeFailure(RuntimeError):
@@ -515,24 +553,30 @@ def device_kernels(fn, iters: int = 20) -> tuple[list[str], float | None]:
     durations summed per call (None when it records none).  No call is
     annotated, so this is the kernels' own time, without the gaps in which
     the card waits for the host's next launch.  A warm-up cycle runs first,
-    as in ``device_ms``."""
+    as in ``device_ms``.  A capture that records no device activity at all
+    is taken once more: the tracer can lose its buffer (one smoke on an
+    H100 saw nothing for the ``histogram``, whose launches and result were
+    right)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    cycles = []
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: cycles.append(p.key_averages())
-                 ) as prof:
-        for _ in range(2):
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    require(len(cycles) == 1, f"the profiler gave {len(cycles)} cycles")
-    events = [e for e in cycles[0]
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(2):
+        cycles = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: cycles.append(p.key_averages())
+                     ) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        require(len(cycles) == 1, f"the profiler gave {len(cycles)} cycles")
+        events = [e for e in cycles[0]
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     us = sum(_dev_us(e) for e in events)
     return (sorted({e.key for e in events}),
             us / 1e3 / iters if us > 0 else None)
@@ -2445,6 +2489,8 @@ def dryrun_check_row(arch: str, layers, predict: subprocess.Popen) -> dict:
         base_bytes = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         model = _init_model(cfg, "cuda", SEED_FLOAT)
+        # from_local keeps each tensor (distribute_tensor copies each
+        # shard, which moves the MoE row's peak by 51,200 bytes)
         specs = P.specs(model.param_defs(), rules)
         for name, p in list(model.named_parameters()):
             *path, leaf = name.split(".")
@@ -2522,6 +2568,304 @@ def _batch_spec(cfg, rules) -> tuple:
     from repro_torch.models.api import batch_specs
     return batch_specs(cfg, ShapeConfig("smoke_train", TRAIN_SEQ, TRAIN_BATCH,
                                         "train"), rules)["tokens"]
+
+
+_ELASTIC_CPU = """
+import json, sys
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def worker(rank, port, out):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as P
+    from repro_torch.models.api import build_model, rules_for
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import AdamWConfig
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{{port}}",
+                            rank=rank, world_size={ranks})
+    cfg = reduced(get_arch({arch!r})).replace(n_layers=1)
+    mesh = make_host_mesh(*{mesh!r})
+    rules = rules_for(cfg, mesh, "train", fsdp=False)
+    model = P.distribute_params(build_model(cfg, device="cpu"), mesh, rules)
+    tr = Trainer(model, AdamWConfig(lr=1e-3),
+                 TrainerConfig(steps=3, ckpt_every=2),
+                 TokenPipeline(cfg.vocab_size, {seq}, {batch}),
+                 ckpt=CheckpointManager(out, async_save=False),
+                 mesh=mesh, rules=rules)
+    tr.run(tr.init_state(torch.Generator().manual_seed({seed})))
+    if rank == 0:
+        print(json.dumps({{"losses": [h["loss"] for h in tr.history]}}))
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    mp.spawn(worker, args=(int(sys.argv[1]), sys.argv[2]), nprocs={ranks})
+"""
+
+
+def _elastic_trainer(cfg, pipe, opt_cfg, fsdp: bool | None):
+    """A Trainer of ``cfg`` on the card: on a fresh (1, 1) mesh under the
+    rules with or without FSDP, or with no mesh (``fsdp`` None)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as P
+    from repro_torch.models.api import build_model, rules_for
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    model = build_model(cfg, device="cuda")
+    mesh = rules = None
+    if fsdp is not None:
+        mesh = make_host_mesh(1, 1)
+        rules = rules_for(cfg, mesh, "train", fsdp=fsdp)
+        P.distribute_params(model, mesh, rules)
+    return Trainer(model, opt_cfg, TrainerConfig(steps=3), pipe, mesh=mesh,
+                   rules=rules)
+
+
+def _elastic_resume(tr, ckpt_dir, *, onto_mesh: bool) -> dict:
+    """Restore the newest checkpoint of ``ckpt_dir`` into ``tr`` (with
+    ``shardings`` onto its mesh when ``onto_mesh``) and take the next
+    step: its loss, and the restore-plus-distribute seconds."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import params as P
+    shardings = None
+    if onto_mesh:
+        tree = P.shardings(tr.model.param_defs(), tr.rules, tr.mesh)
+        shardings = {"params": tree, "opt": {"m": tree, "v": tree}}
+    t0 = time.perf_counter()
+    step, state = CheckpointManager(ckpt_dir).restore(shardings=shardings)
+    opt = tr.load_checkpoint(state)
+    del state
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    tr.run(opt, start_step=step, steps=1)
+    return {"step": step, "restore_s": restore_s,
+            "loss": tr.history[-1]["loss"]}
+
+
+def _gap(row: dict, loss: float) -> dict:
+    row["gap"] = abs(row["loss"] - loss)
+    row["bit_equal"] = row["loss"] == loss
+    require(row["gap"] <= ELASTIC_TOL,
+            f"elastic: the resumed loss {row['loss']} against {loss}")
+    return row
+
+
+def elastic_phase(work: Path) -> dict:
+    """qwen3-0.6b whole in f32 at TRAIN_BATCH x TRAIN_SEQ on a one-rank
+    NCCL group: two AdamW steps of a Trainer on a (1, 1) mesh, an async
+    save of its state (each DTensor gathered whole), and the third step
+    beside the write (the uninterrupted loss); the checkpoint restored
+    onto a fresh (1, 1) mesh under the FSDP rules (``shardings``) and into
+    a model with no mesh, each taking the third step.  Then the cross-size
+    leg: ELASTIC_CPU_MESH CPU ``gloo`` ranks in a subprocess (started
+    first, running beside the card) train the reduced model (1 layer) two
+    steps, save, and take the third; the card restores that checkpoint
+    onto its (1, 1) mesh and takes the third step.  Every third-step loss
+    within ELASTIC_TOL of its uninterrupted one."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.data import TokenPipeline
+    from repro_torch.train.optimizer import AdamWConfig
+
+    t_phase = time.perf_counter()
+    ranks = math.prod(ELASTIC_CPU_MESH)
+    script, cpu_dir = work / "elastic_cpu.py", work / "elastic_cpu"
+    script.write_text(_ELASTIC_CPU.format(
+        ranks=ranks, arch=ARCH, mesh=ELASTIC_CPU_MESH, seq=ELASTIC_CPU_SEQ,
+        batch=ELASTIC_CPU_BATCH, seed=SEED_FLOAT))
+    cpu = subprocess.Popen(
+        [sys.executable, str(script), str(_free_port()), str(cpu_dir)],
+        cwd=ROOT, env=dict(_cpu_env(), OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        cfg = get_arch(ARCH).replace(dtype="float32")
+        pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+        out = {"arch": ARCH, "layers": cfg.n_layers, "dtype": "float32",
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "tol": ELASTIC_TOL}
+        ck = work / "elastic_ckpt"
+        tr = _elastic_trainer(cfg, pipe, AdamWConfig(), False)
+        opt = tr.init_state(torch.Generator(device="cuda").manual_seed(
+            SEED_FLOAT))
+        tr.run(opt, start_step=0, steps=2)
+        mgr = CheckpointManager(ck, async_save=True)
+        done: list = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(2, tr.checkpoint_state(opt, 2)).add_done_callback(
+            lambda _: done.append(time.perf_counter()))
+        save_s = time.perf_counter() - t0
+        tr.run(opt, start_step=2, steps=1)  # beside the write
+        t1 = time.perf_counter()
+        mgr.wait()
+        base = tr.history[-1]["loss"]
+        step_dir = ck / f"step_{2:010d}"
+        out["save"] = {
+            "gather_copy_s": save_s, "commit_s": done[0] - t0,
+            "wait_after_step_s": time.perf_counter() - t1,
+            "bytes": sum(f.stat().st_size for f in step_dir.iterdir()),
+            "rules": "fsdp=False"}
+        out["losses"] = [h["loss"] for h in tr.history]
+        del tr, opt
+        free_card()
+        out["mesh_fsdp"] = _gap(_elastic_resume(
+            _elastic_trainer(cfg, pipe, AdamWConfig(), True), ck,
+            onto_mesh=True), base)
+        free_card()
+        out["plain"] = _gap(_elastic_resume(
+            _elastic_trainer(cfg, pipe, AdamWConfig(), None), ck,
+            onto_mesh=False), base)
+        shutil.rmtree(ck)
+        free_card()
+
+        stdout, err = cpu.communicate(timeout=DRYRUN_TIMEOUT_S)
+        require(cpu.returncode == 0, f"elastic CPU ranks failed: "
+                                     f"{err[-2000:]}")
+        cpu_losses = json.loads(stdout.strip().splitlines()[-1])["losses"]
+        small = reduced(get_arch(ARCH)).replace(n_layers=1)
+        row = _elastic_resume(_elastic_trainer(
+            small, TokenPipeline(small.vocab_size, ELASTIC_CPU_SEQ,
+                                 ELASTIC_CPU_BATCH),
+            AdamWConfig(lr=1e-3), False), cpu_dir, onto_mesh=True)
+        row.update({"cpu_mesh": "x".join(map(str, ELASTIC_CPU_MESH)),
+                    "cpu_losses": cpu_losses})
+        out["cross_size"] = _gap(row, cpu_losses[2])
+        out["seconds"] = time.perf_counter() - t_phase
+        return out
+    finally:
+        dist.destroy_process_group()
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.communicate()
+        free_card()
+
+
+_CHAOS = """
+import json, math, statistics, sys, time
+import numpy as np
+from repro_torch.query import Database
+from repro_torch.serve.chaos import ChaosSchedule, default_schedule
+from repro_torch.serve.engine import QueryError, QueryRequest, QueryServer
+from repro_torch.serve.shard import ShardedQueryServer
+from repro_torch.serve.wire import result_to_wire
+
+db_dir = sys.argv[1]
+
+
+def mixed(db, n, seed):
+    rng = np.random.default_rng(seed)
+    ctxs, mids = db.stats["ctx"], db.stats["mid"]
+    out = []
+    for _ in range(n):
+        i = int(rng.integers(len(ctxs)))
+        p = rng.random()
+        if p < 0.35:
+            out.append(QueryRequest(op="stripe", ctx=int(ctxs[i]),
+                                    metric=int(mids[i])))
+        elif p < 0.55:
+            out.append(QueryRequest(op="profile",
+                                    pid=int(rng.integers(db.n_profiles))))
+        elif p < 0.75:
+            out.append(QueryRequest(op="topk", metric=0, inclusive=True,
+                                    k=int(rng.integers(3, 10))))
+        else:
+            out.append(QueryRequest(op="window",
+                                    pid=int(rng.integers(db.n_profiles)),
+                                    t0=0.0, t1=0.7))
+    return out
+
+
+def enc(results):
+    return [json.dumps(result_to_wire(r), sort_keys=True) for r in results]
+
+
+def load(srv, span_s):
+    deadline = time.monotonic() + span_s
+    ms, errors, mismatches, n = [], 0, 0, 0
+    while time.monotonic() < deadline or n < len(batches):
+        b = n % len(batches)
+        t0 = time.perf_counter()
+        got = srv.serve(batches[b])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        errors += sum(isinstance(r, QueryError) for r in got)
+        mismatches += enc(got) != refs[b]
+        n += 1
+    ms.sort()
+    return {{"batches": n, "errors": errors, "mismatches": mismatches,
+             "median_ms": statistics.median(ms),
+             "p95_ms": ms[math.ceil(0.95 * len(ms)) - 1], "max_ms": ms[-1]}}
+
+
+with Database(db_dir) as db:
+    batches = [mixed(db, {batch}, 100 + s) for s in range(6)]
+    server = QueryServer(db)
+    refs = [enc(server.serve(b)) for b in batches]
+t0 = time.perf_counter()
+with ShardedQueryServer(db_dir, {shards}, replicas={replicas},
+                        hedge_ms={hedge}, hang_kill_s={hang},
+                        mp_context="spawn") as srv:
+    ready_s = time.perf_counter() - t0
+    cold = load(srv, 0)  # one pass over every batch: planes decoded cold
+    calm = load(srv, {calm})
+    events = default_schedule({shards})
+    with ChaosSchedule(srv, events) as sched:
+        faulted = load(srv, {span})
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and srv.metrics()["respawns"] < 1:
+        time.sleep(0.05)
+    m = srv.metrics()
+    report = sched.report()
+print(json.dumps({{"ready_s": ready_s, "cold": cold, "unfaulted": calm,
+                  "faulted": faulted,
+                  "events": report, "respawns": m["respawns"],
+                  "failovers": m["failovers"], "replayed": m["replayed"],
+                  "hedges": m["hedges"]}}))
+"""
+
+
+def chaos_phase(db_dir: str) -> dict:
+    """``ShardedQueryServer(db, CHAOS_SHARDS, replicas=CHAOS_REPLICAS,
+    hedge_ms=CHAOS_HEDGE_MS, hang_kill_s=CHAOS_HANG_KILL_S)`` (workers
+    spawned) on the integer database the card wrote, in a subprocess
+    with no card visible: one cold pass over the mixed request batches,
+    CHAOS_CALM_S of them unfaulted, then CHAOS_SPAN_S under
+    ``default_schedule`` (a worker killed, a peer's
+    requests dropped, a peer stalled); every reply byte-equal to the
+    in-process ``QueryServer``'s, no ``QueryError``, the respawn and
+    failover counters positive; each window's batch latencies."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHAOS.format(
+            batch=CHAOS_BATCH, shards=CHAOS_SHARDS, replicas=CHAOS_REPLICAS,
+            calm=CHAOS_CALM_S, span=CHAOS_SPAN_S, hedge=CHAOS_HEDGE_MS,
+            hang=CHAOS_HANG_KILL_S),
+         db_dir],
+        cwd=ROOT, env=_cpu_env(), capture_output=True, text=True,
+        timeout=300)
+    require(proc.returncode == 0, f"chaos failed: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out.update({"shards": CHAOS_SHARDS, "replicas": CHAOS_REPLICAS,
+                "batch": CHAOS_BATCH, "seconds": time.perf_counter() - t0})
+    for window in ("cold", "unfaulted", "faulted"):
+        w = out[window]
+        require(w["errors"] == 0 and w["mismatches"] == 0,
+                f"chaos {window}: {w}")
+    require([e["kind"] for e in out["events"]] == ["kill", "drop", "stall"],
+            f"chaos: the schedule applied {out['events']}")
+    require(out["respawns"] > 0 and out["failovers"] > 0,
+            f"chaos: respawns {out['respawns']}, failovers "
+            f"{out['failovers']}")
+    return out
 
 
 def generate_parity_phase() -> dict:
@@ -2832,6 +3176,7 @@ def main() -> int:
         emit({"query_server": query_server_phase(work / "ingest_int",
                                                  dbs["int_numpy"])})
         emit({"watch": watch})
+        emit({"chaos": chaos_phase(dbs["int_card"])})
 
         # -- 4. each kernel of the analyze path on its inputs, against its
         #    plain version (emitted with the int8_quant entry, after 9.)
@@ -3012,6 +3357,8 @@ def main() -> int:
 
         # -- the dry-run on fake H100 meshes, then its prediction on the card
         dryrun_phases()
+        # -- a checkpoint of DTensor state restored across meshes
+        emit({"elastic": elastic_phase(work)})
         for e in entries:  # the launches of the ingest phase's float twin
             key = next(k for k in (*INGEST_KERNELS, "scatter_add",
                                    "int8_quant") if e["name"].startswith(k))

@@ -417,9 +417,12 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
             f"a lookup with the table placed {table.placements} and the "
             f"tokens {tok_pl}")
     d = vocab[0]
-    # the table whole but for its vocab split (FSDP gathers d_model here)
-    local = table.redistribute(mesh, [Shard(0) if i == d else Replicate()
-                                      for i in range(mesh.ndim)]).to_local()
+    # the table whole but for its vocab split (FSDP gathers d_model here);
+    # each rank's gradient of it is a partial sum over the mesh dims that
+    # split the tokens
+    pl = [Shard(0) if i == d else Replicate() for i in range(mesh.ndim)]
+    local = table.redistribute(mesh, pl).to_local(grad_placements=[
+        Partial() if isinstance(t, Shard) else p for t, p in zip(tok_pl, pl)])
     ids = tokens.to_local() if isinstance(tokens, DTensor) else tokens
     rows = local.shape[0]
     rel = ids.long() - mesh.get_local_rank(d) * rows

@@ -14,6 +14,14 @@ two:
   ``np.asarray`` of the JAX tree gives, or tensors) into a model;
 * :func:`to_reference` turns a model's parameters back into that tree.
 
+On a mesh (:func:`distribute_params`) the parameters are DTensors: the
+two directions gather each one whole (a collective: every rank calls them
+in the same order) and distribute each array onto its parameter's own
+mesh and placements, so a tree written on one mesh loads onto another.
+:func:`shardings` gives the reference-layout tree of
+:class:`~repro_torch.sharding.specs.NamedSharding` that
+:meth:`~repro_torch.checkpoint.CheckpointManager.restore` takes.
+
 :func:`shapedtypes` and :func:`specs` give the dry-run each module
 parameter's shape and sharding: the def of ``<group>/<name>`` with its
 leading (layer) axis dropped, under ``unstack``'s name.
@@ -73,13 +81,18 @@ def init_params(defs, generator: torch.Generator, dtype, device) -> dict:
                         device=device)
         return x.mul_(scale).to(dtype)
 
+    return _nest((path, mk(d)) for path, d in flatten(defs))
+
+
+def _nest(pairs) -> dict:
+    """``(path, leaf)`` pairs, paths joined by ``/``, as a nested dict."""
     out: dict = {}
-    for path, d in flatten(defs):
+    for path, leaf in pairs:
         node = out
-        *parents, leaf = path.split("/")
+        *parents, name = path.split("/")
         for p in parents:
             node = node.setdefault(p, {})
-        node[leaf] = mk(d)
+        node[name] = leaf
     return out
 
 
@@ -116,6 +129,44 @@ def specs(defs, rules) -> dict[str, tuple]:
             for n, d in unstacked_defs(defs).items()}
 
 
+def shardings(defs, rules, mesh) -> dict:
+    """The reference-layout tree of
+    :class:`~repro_torch.sharding.specs.NamedSharding` of ``defs`` under
+    ``rules`` on ``mesh``: each leaf the placements of its whole (stacked)
+    def, as the reference's ``NamedSharding(mesh, spec)`` of ``specs``."""
+    from repro_torch.sharding.specs import NamedSharding, logical_to_spec
+    return _nest((path, NamedSharding.of(logical_to_spec(d.logical, rules),
+                                         mesh))
+                 for path, d in flatten(defs))
+
+
+def distribute_params(model: torch.nn.Module, mesh, rules) -> torch.nn.Module:
+    """Lay ``model``'s parameters onto ``mesh`` under ``rules``, in place:
+    each becomes a DTensor parameter placed by its def's spec
+    (:func:`specs`), holding its current values (rank 0's, scattered)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.sharding.specs import placements
+    spec = specs(model.param_defs(), rules)
+    for name, p in list(model.named_parameters()):
+        _set_param(model, name, distribute_tensor(
+            p.detach(), mesh, placements(spec[name], mesh)), p.requires_grad)
+    return model
+
+
+def _set_param(model, name: str, t: torch.Tensor, requires_grad: bool):
+    *path, leaf = name.split(".")
+    setattr(model.get_submodule(".".join(path)), leaf,
+            torch.nn.Parameter(t, requires_grad=requires_grad))
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole onto each rank (``full_tensor``, a
+    collective); any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def torch_dtype(dtype) -> torch.dtype:
     """A torch dtype from a config's name for it (``"bfloat16"``) or
     itself."""
@@ -147,10 +198,12 @@ def unstack(tree: dict) -> dict[str, torch.Tensor]:
 
 def stack(named: dict[str, torch.Tensor]) -> dict:
     """Inverse of :func:`unstack`: ``{name: tensor}`` -> reference tree,
-    the per-layer tensors stacked along a new axis 0."""
+    the per-layer tensors stacked along a new axis 0; DTensors gathered
+    whole first (:func:`whole`)."""
     tree: dict = {}
     per_layer: dict[tuple[str, str], dict[int, torch.Tensor]] = {}
     for name, t in named.items():
+        t = whole(t)
         parts = name.split(".")
         if parts[0] in STACKED:
             key = (parts[0], ".".join(parts[2:]))
@@ -171,8 +224,11 @@ def from_reference(model: torch.nn.Module, tree: dict) -> torch.nn.Module:
     """Load a reference-layout tree into ``model``'s parameters, in place.
 
     Each parameter takes the tree's values and dtype and stays on the
-    model's device.  Raises unless the tree's names and shapes are exactly
-    the model's."""
+    model's device; a DTensor parameter stays on its mesh with its
+    placements (a DTensor leaf already so placed is taken as it is, any
+    other leaf gathered whole and distributed).  Raises unless the tree's
+    names and shapes are exactly the model's."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
     flat = unstack(tree)
     params = dict(model.named_parameters())
     if set(flat) != set(params):
@@ -184,12 +240,21 @@ def from_reference(model: torch.nn.Module, tree: dict) -> torch.nn.Module:
         if tuple(src.shape) != tuple(p.shape):
             raise ValueError(f"{name}: reference shape {tuple(src.shape)}, "
                              f"model shape {tuple(p.shape)}")
-        p.data = src.to(device=p.device).clone()
+        if not isinstance(p, DTensor):
+            p.data = whole(src).to(device=p.device).clone()
+        elif (isinstance(src, DTensor) and src.device_mesh == p.device_mesh
+              and tuple(src.placements) == tuple(p.placements)):
+            _set_param(model, name, src.detach().clone(), p.requires_grad)
+        else:
+            _set_param(model, name, distribute_tensor(
+                whole(src).to(p.device), p.device_mesh, p.placements),
+                p.requires_grad)
     return model
 
 
 @torch.no_grad()
 def to_reference(model: torch.nn.Module) -> dict:
-    """The model's parameters as a reference-layout tree of CPU tensors."""
-    return stack({n: p.detach().cpu()
+    """The model's parameters as a reference-layout tree of CPU tensors
+    (DTensors gathered whole)."""
+    return stack({n: whole(p.detach()).cpu()
                   for n, p in model.named_parameters()})

@@ -201,6 +201,24 @@ def placements(spec: tuple, mesh) -> tuple:
     return tuple(out)
 
 
+@dataclass(frozen=True)
+class NamedSharding:
+    """Where a whole tensor goes on a mesh: a ``DeviceMesh`` and one
+    DTensor placement per mesh dim (:func:`placements`' form).  The port's
+    counterpart of ``jax.sharding.NamedSharding``; a tree of them, shaped
+    like a checkpoint's state, is what
+    :meth:`~repro_torch.checkpoint.CheckpointManager.restore` takes as
+    ``shardings``."""
+
+    mesh: object
+    placements: tuple
+
+    @classmethod
+    def of(cls, spec: tuple, mesh) -> "NamedSharding":
+        """The sharding of a :func:`logical_to_spec` spec on ``mesh``."""
+        return cls(mesh, placements(spec, mesh))
+
+
 def local_shape(shape: tuple, spec: tuple, mesh_axis_sizes: dict) -> tuple:
     """The largest device's shard of ``shape`` under ``spec``: each split
     dim ceil-divided by the product of its axes' sizes (XLA pads uneven

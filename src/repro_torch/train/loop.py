@@ -14,7 +14,9 @@ With a ``mesh`` and ``rules`` the step runs under
 parameters: the model's constraints resolve against that mesh, each
 gradient is reduced to its parameter's placements once, and AdamW updates
 the DTensor parameters and moments in place.  The same step runs on one
-device, on a real process group and in the dry-run's fake one.
+device, on a real process group and in the dry-run's fake one.  A
+Trainer's checkpoint holds whole arrays, whatever its mesh, so it resumes
+on another mesh or none (:meth:`Trainer.load_checkpoint`).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.models import params as P
 from repro_torch.sharding.specs import distribute, set_rules
@@ -200,8 +202,10 @@ class Trainer:
                 if hasattr(self.pipeline, "delay_s"):
                     self.pipeline.delay_s = 0.0  # drop the slow path
 
-            rec = {"step": step, "loss": float(metrics["loss"]),
-                   "grad_norm": float(metrics["grad_norm"]),
+            # on a mesh the loss is a DTensor (a partial sum over the
+            # batch axes): its whole value, not this rank's part
+            rec = {"step": step, "loss": float(P.whole(metrics["loss"])),
+                   "grad_norm": float(P.whole(metrics["grad_norm"])),
                    "step_time": dt, "data_wait": data_wait}
             self.history.append(rec)
             if self.profiler is not None:
@@ -215,7 +219,8 @@ class Trainer:
 
     def checkpoint_state(self, opt_state: dict, data_step: int) -> dict:
         """The reference's checkpoint tree: stacked parameters and moments,
-        the optimizer step as an int32 scalar, the data cursor."""
+        the optimizer step as an int32 scalar, the data cursor.  On a mesh
+        each DTensor is gathered whole (every rank calls this)."""
         return {"params": P.to_reference(self.model),
                 "opt": {"m": P.stack(opt_state["m"]),
                         "v": P.stack(opt_state["v"]),
@@ -223,15 +228,22 @@ class Trainer:
                 "data": {"step": np.int64(data_step)}}
 
     def load_checkpoint(self, state: dict) -> dict:
-        """Load a restored checkpoint tree (either package's) into the model
-        and return its optimizer state."""
+        """Load a restored checkpoint tree (either package's, written on
+        any mesh or none) into the model and return its optimizer state.
+        On a mesh each parameter and its moments are distributed with the
+        parameter's placements, as ``init_opt_state`` lays them."""
         P.from_reference(self.model, state["params"])
         names = dict(self.model.named_parameters())
 
+        def moment(t, p):
+            t = P.whole(t).to(self.device, torch.float32, copy=True)
+            if isinstance(p, DTensor):
+                return distribute_tensor(t, p.device_mesh, p.placements)
+            return t
+
         def moments(tree):
             flat = P.unstack(tree)
-            return {n: flat[n].to(self.device, torch.float32).clone()
-                    for n in names}
+            return {n: moment(flat[n], p) for n, p in names.items()}
 
         return {"m": moments(state["opt"]["m"]),
                 "v": moments(state["opt"]["v"]),

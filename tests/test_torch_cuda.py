@@ -1011,3 +1011,76 @@ def test_logits_f32_card_matches_cpu(dev):
     assert got.dtype == torch.float32
     torch.testing.assert_close(got.cpu(), want, rtol=0,
                                atol=1e-5 * want.abs().max().item())
+
+
+@pytest.fixture
+def one_rank_nccl(dev):
+    """A one-rank NCCL group for the test (the card's (1, 1) mesh)."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+def _elastic_trainer(device, fsdp, ckpt=None):
+    """Reduced qwen3-0.6b (1 layer, f32) in a Trainer on ``device``: on a
+    (1, 1) mesh with or without FSDP, or with no mesh (``fsdp`` None)."""
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as P
+    from repro_torch.models.api import build_model, rules_for
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = reduced(get_arch("qwen3-0.6b")).replace(n_layers=1)
+    model = build_model(cfg, device=device)
+    mesh = rules = None
+    if fsdp is not None:
+        mesh = make_host_mesh(1, 1)
+        rules = rules_for(cfg, mesh, "train", fsdp=fsdp)
+        P.distribute_params(model, mesh, rules)
+    return Trainer(model, AdamWConfig(lr=1e-3),
+                   TrainerConfig(steps=3, ckpt_every=2),
+                   TokenPipeline(cfg.vocab_size, 16, 8), ckpt=ckpt,
+                   mesh=mesh, rules=rules)
+
+
+@pytest.mark.parametrize("written_on,onto", [("card_mesh", "card_mesh"),
+                                             ("card_mesh", "card_plain"),
+                                             ("cpu_plain", "card_mesh")])
+def test_elastic_restore_on_the_card(one_rank_nccl, tmp_path, written_on,
+                                     onto):
+    """Two steps, a checkpoint, a third step: on the card's (1, 1) mesh
+    (an async save of DTensor state) or on the CPU with no mesh.  The
+    checkpoint restored onto a fresh (1, 1) card mesh under the FSDP rules
+    (with ``shardings``), or into a card model with no mesh, takes the
+    third step within 1e-4."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import params as P
+    on_card = written_on == "card_mesh"
+    first = _elastic_trainer(one_rank_nccl if on_card else "cpu",
+                             False if on_card else None,
+                             CheckpointManager(tmp_path))
+    first.run(first.init_state(torch.Generator(
+        device=one_rank_nccl if on_card else "cpu").manual_seed(0)))
+    shardings = None
+    if onto == "card_mesh":
+        tr = _elastic_trainer(one_rank_nccl, True)
+        tree = P.shardings(tr.model.param_defs(), tr.rules, tr.mesh)
+        shardings = {"params": tree, "opt": {"m": tree, "v": tree}}
+    else:
+        tr = _elastic_trainer(one_rank_nccl, None)
+    step, state = CheckpointManager(tmp_path).restore(shardings=shardings)
+    assert step == 2
+    tr.run(tr.load_checkpoint(state), start_step=step, steps=1)
+    assert all(p.device.type == torch.device(one_rank_nccl).type
+               for p in tr.model.parameters())
+    assert abs(tr.history[0]["loss"] - first.history[2]["loss"]) < 1e-4

@@ -9,7 +9,10 @@ runs every case; each rank also runs the unsharded model.  The train
 cases take one AdamW step from the same initial parameters and batch
 (8 x 32 from the token pipeline) with the reference's rules and
 ``fsdp=True``, and hold the loss within 1e-3 and every parameter within
-5e-3, the reference test's own bounds:
+5e-3, the reference test's own bounds, and every gradient within 5e-5 of
+its tensor's largest entry (AdamW's first step moves each parameter by
+about ``lr`` whatever its gradient, so the parameters cannot show a wrong
+one):
 
 * reduced qwen3-moe-30b-a3b, EP (4 experts on ``model``), both
   dispatches; the sorted one at a capacity factor of 1, so that copies
@@ -39,6 +42,9 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_TOL, PARAM_TOL, LOGIT_TOL = 1e-3, 5e-3, 1e-5
+# each gradient against its largest entry: f32 sums in other orders (the
+# SSM scans' run to ~1e-5)
+GRAD_TOL = 5e-5
 TRAIN = {
     "moe_ep_sorted": ("qwen3-moe-30b-a3b", {"capacity_factor": 1.0}),
     "moe_ep_rowwise": ("qwen3-moe-30b-a3b", {"moe_dispatch": "rowwise"}),
@@ -57,7 +63,7 @@ WORKER = """
     import torch
     import torch.distributed as dist
     import torch.multiprocessing as mp
-    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor import DTensor
 
     from repro_torch.configs.base import get_arch, reduced
     from repro_torch.data import TokenPipeline
@@ -65,9 +71,8 @@ WORKER = """
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import params as P
     from repro_torch.models.api import build_model, rules_for
-    from repro_torch.sharding.specs import (distribute, placements,
-                                            set_rules)
-    from repro_torch.train.loop import make_train_step
+    from repro_torch.sharding.specs import distribute, set_rules
+    from repro_torch.train.loop import make_train_step, value_and_grad
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 
     TRAIN = {train!r}
@@ -82,15 +87,6 @@ WORKER = """
         return cfg, model
 
 
-    def shard_params(model, mesh, rules):
-        specs = P.specs(model.param_defs(), rules)
-        for name, p in list(model.named_parameters()):
-            *path, leaf = name.split(".")
-            setattr(model.get_submodule(".".join(path)), leaf,
-                    torch.nn.Parameter(distribute_tensor(
-                        p.detach(), mesh, placements(specs[name], mesh))))
-
-
     def full(t):
         return t.full_tensor() if isinstance(t, DTensor) else t
 
@@ -100,13 +96,19 @@ WORKER = """
         tokens = torch.from_numpy(
             TokenPipeline(cfg.vocab_size, 32, 8).batch_at(0))
         ref = copy.deepcopy(model)
+        _, g_ref = value_and_grad(ref, {{"tokens": tokens}})
         m1 = make_train_step(ref, AdamWConfig())(
             init_opt_state(dict(ref.named_parameters())),
             {{"tokens": tokens}})
         rules = rules_for(cfg, mesh, "train", fsdp=True)
-        shard_params(model, mesh, rules)
+        P.distribute_params(model, mesh, rules)
         batch = {{"tokens": distribute(tokens, ("batch", "seq"), mesh,
                                        rules)}}
+        with set_rules(mesh, rules):
+            _, g = value_and_grad(model, batch)
+        grad_diff = max(float((P.whole(g[n]) - t).abs().max())
+                        / max(float(t.abs().max()), 1e-30)
+                        for n, t in g_ref.items())
         m2 = make_train_step(model, AdamWConfig(), mesh=mesh, rules=rules)(
             init_opt_state(dict(model.named_parameters())), batch)
         ref_p = dict(ref.named_parameters())
@@ -114,7 +116,7 @@ WORKER = """
                    for n, p in model.named_parameters())
         return {{"loss_ref": float(m1["loss"]),
                  "loss": float(full(m2["loss"])), "param_diff": diff,
-                 "rules": {{k: rules.rules[k] for k in (
+                 "grad_diff": grad_diff, "rules": {{k: rules.rules[k] for k in (
                      "experts", "expert_ff", "moe_cap", "ssm_inner")}}}}
 
 
@@ -132,7 +134,7 @@ WORKER = """
               "attn_v": cache["attn_v"].clone(), "len": cache["len"]}},
             {{"tokens": nxt}})
         rules = rules_for(cfg, mesh, "decode_sp")
-        shard_params(model, mesh, rules)
+        P.distribute_params(model, mesh, rules)
         defs = model.cache_defs(1, 16)
 
         def split(t, d):  # a copy made outside inference mode
@@ -218,6 +220,7 @@ def test_sharded_family_step_matches_unsharded(results, case):
         assert rules["ssm_inner"] == "model"
     assert abs(res["loss"] - res["loss_ref"]) < LOSS_TOL, res
     assert res["param_diff"] < PARAM_TOL, res
+    assert res["grad_diff"] < GRAD_TOL, res
 
 
 def test_sequence_split_decode_matches_unsharded(results):

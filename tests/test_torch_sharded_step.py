@@ -9,7 +9,10 @@ rules and ``fsdp=True`` (so parameters split over both axes, the queries'
 heads over ``model`` with the keys and values expanded, the vocab over
 ``model``), each rank a spawned process on one ``gloo`` group.  The
 bounds are the reference test's own: loss within 1e-3, every parameter
-within 5e-3.
+within 5e-3; and every gradient within 1e-5 of its tensor's largest
+entry (AdamW's first steps move each parameter by about ``lr`` whatever
+its gradient's size, so the parameters alone cannot show a wrong
+gradient).
 """
 import json
 import os
@@ -20,6 +23,8 @@ import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_TOL, PARAM_TOL = 1e-3, 5e-3
+# each gradient against its largest entry (f32 sums in other orders)
+GRAD_TOL = 1e-5
 
 WORKER = """
     import copy
@@ -29,15 +34,15 @@ WORKER = """
     import torch
     import torch.distributed as dist
     import torch.multiprocessing as mp
-    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor import DTensor
 
     from repro_torch.configs.base import get_arch, reduced
     from repro_torch.data import TokenPipeline
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import params as P
     from repro_torch.models.api import build_model, rules_for
-    from repro_torch.sharding.specs import distribute, placements
-    from repro_torch.train.loop import make_train_step
+    from repro_torch.sharding.specs import distribute, set_rules
+    from repro_torch.train.loop import make_train_step, value_and_grad
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 
 
@@ -53,21 +58,22 @@ WORKER = """
             TokenPipeline(cfg.vocab_size, 32, 8).batch_at(0))
 
         ref = copy.deepcopy(model)
+        _, g_ref = value_and_grad(ref, {"tokens": tokens})
         ref_opt = init_opt_state(dict(ref.named_parameters()))
         m1 = make_train_step(ref, AdamWConfig())(ref_opt, {"tokens": tokens})
 
         mesh = make_host_mesh(2, 4)
         rules = rules_for(cfg, mesh, "train", fsdp=True)
-        specs = P.specs(model.param_defs(), rules)
-        split = 0
-        for name, p in list(model.named_parameters()):
-            *path, leaf = name.split(".")
-            pl = placements(specs[name], mesh)
-            split += any(x.is_shard() for x in pl)
-            setattr(model.get_submodule(".".join(path)), leaf,
-                    torch.nn.Parameter(distribute_tensor(p.detach(), mesh, pl)))
+        P.distribute_params(model, mesh, rules)
+        split = sum(any(x.is_shard() for x in p.placements)
+                    for p in model.parameters())
         opt = init_opt_state(dict(model.named_parameters()))
         batch = {"tokens": distribute(tokens, ("batch", "seq"), mesh, rules)}
+        # every gradient, each against its tensor's largest entry
+        with set_rules(mesh, rules):
+            _, g = value_and_grad(model, batch)
+        grad_diff = max(float((P.whole(g[n]) - t).abs().max())
+                        / float(t.abs().max()) for n, t in g_ref.items())
         m2 = make_train_step(model, AdamWConfig(), mesh=mesh,
                              rules=rules)(opt, batch)
         loss2 = m2["loss"]
@@ -79,6 +85,7 @@ WORKER = """
         if rank == 0:
             print(json.dumps({"loss_ref": float(m1["loss"]),
                               "loss": float(loss2), "param_diff": diff,
+                              "grad_diff": grad_diff,
                               "split": split, "rules": rules.rules,
                               "n": len(ref_p)}), flush=True)
         dist.destroy_process_group()
@@ -110,3 +117,4 @@ def test_sharded_train_step_matches_unsharded(tmp_path):
     assert res["split"] > res["n"] // 2  # most parameters are split
     assert abs(res["loss"] - res["loss_ref"]) < LOSS_TOL, res
     assert res["param_diff"] < PARAM_TOL, res
+    assert res["grad_diff"] < GRAD_TOL, res
