@@ -224,7 +224,7 @@ read just after:
     equal to the predicted argument bytes less the batch and the int32
     step, and the median step no faster than the roofline bound.
     ``python3 chip_smoke.py --dryrun-only`` runs these two phases alone
-    (and is not the smoke).
+    (and is not the smoke); ``--elastic-only`` runs ``elastic`` alone.
 15. ``elastic`` — checkpoints of DTensor state across meshes, on a
     one-rank NCCL group: qwen3-0.6b whole in f32 at batch 8 x 128, a
     ``Trainer`` on a (1, 1) mesh takes two AdamW steps, saves with
@@ -237,6 +237,10 @@ read just after:
     checkpoint onto its (1, 1) mesh.  Every third-step loss within 1e-4
     of its uninterrupted one (the gap and bit-equality printed); the
     checkpoint's bytes, the gather-and-copy, commit and restore seconds.
+    The save's card peak above the resident state
+    (``save_peak_above_resident_bytes``: the save gathers and copies one
+    leaf at a time) at most the largest leaf it gathers
+    (``largest_leaf_bytes``, the tied embedding) plus 64 MiB.
     ``phase_seconds`` gives each phase's seconds.
 
 Every line before the last is one JSON object; the last is
@@ -332,6 +336,9 @@ CHECK_STEPS = 5         # timed DTensor steps after the checked one
 # elastic: the next step after a restore against the uninterrupted one;
 # the cross-size leg's CPU ranks, their mesh and batch (reduced, 1 layer)
 ELASTIC_TOL = 1e-4
+# a save's card memory above the resident state: one whole leaf, and the
+# allocator's rounding
+ELASTIC_SAVE_SLACK = 64 << 20
 ELASTIC_CPU_MESH, ELASTIC_CPU_SEQ, ELASTIC_CPU_BATCH = (2, 4), 16, 8
 # chaos: 3 shards of 2 replicas each under default_schedule(3); load for
 # CHAOS_CALM_S unfaulted, then CHAOS_SPAN_S under the schedule, batches of
@@ -2659,7 +2666,9 @@ def _gap(row: dict, loss: float) -> dict:
 def elastic_phase(work: Path) -> dict:
     """qwen3-0.6b whole in f32 at TRAIN_BATCH x TRAIN_SEQ on a one-rank
     NCCL group: two AdamW steps of a Trainer on a (1, 1) mesh, an async
-    save of its state (each DTensor gathered whole), and the third step
+    save of its state (each DTensor gathered whole and copied to host one
+    leaf at a time: the card's peak above the resident state at most the
+    largest leaf plus ELASTIC_SAVE_SLACK), and the third step
     beside the write (the uninterrupted loss); the checkpoint restored
     onto a fresh (1, 1) mesh under the FSDP rules (``shardings``) and into
     a model with no mesh, each taking the third step.  Then the cross-size
@@ -2701,10 +2710,17 @@ def elastic_phase(work: Path) -> dict:
         mgr = CheckpointManager(ck, async_save=True)
         done: list = []
         torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         mgr.save(2, tr.checkpoint_state(opt, 2)).add_done_callback(
             lambda _: done.append(time.perf_counter()))
         save_s = time.perf_counter() - t0
+        # the save's card memory above the resident state, against the
+        # largest tensor it gathers whole (the tied embedding)
+        peak = torch.cuda.max_memory_allocated() - resident
+        largest = max(p.numel() * p.element_size()
+                      for p in tr.model.parameters())
         tr.run(opt, start_step=2, steps=1)  # beside the write
         t1 = time.perf_counter()
         mgr.wait()
@@ -2714,7 +2730,14 @@ def elastic_phase(work: Path) -> dict:
             "gather_copy_s": save_s, "commit_s": done[0] - t0,
             "wait_after_step_s": time.perf_counter() - t1,
             "bytes": sum(f.stat().st_size for f in step_dir.iterdir()),
-            "rules": "fsdp=False"}
+            "rules": "fsdp=False", "resident_bytes": resident,
+            "save_peak_above_resident_bytes": peak,
+            "largest_leaf_bytes": largest,
+            "slack_bytes": ELASTIC_SAVE_SLACK}
+        require(peak <= largest + ELASTIC_SAVE_SLACK,
+                f"elastic: the save held {peak} bytes of the card above "
+                f"the resident {resident}, past the largest leaf "
+                f"{largest} + {ELASTIC_SAVE_SLACK}")
         out["losses"] = [h["loss"] for h in tr.history]
         del tr, opt
         free_card()
@@ -3062,6 +3085,20 @@ def main() -> int:
             check=True).stdout.strip(), "torch": torch.__version__})
         dryrun_phases()
         emit({"partial": "dryrun phases only"})
+        return 0
+    if sys.argv[1:] == ["--elastic-only"]:
+        # the elastic phase alone, for a short call; not the whole smoke
+        emit({"gpu": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), "torch": torch.__version__})
+        (ROOT / "build").mkdir(exist_ok=True)
+        work = Path(tempfile.mkdtemp(prefix="smoke.", dir=ROOT / "build"))
+        try:
+            emit({"elastic": elastic_phase(work)})
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        emit({"partial": "elastic phase only"})
         return 0
     import numpy as np
 

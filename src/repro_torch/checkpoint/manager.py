@@ -16,21 +16,30 @@ between the two packages in both directions.
   ``.npz`` as 2-byte void (``|V2``) and restore as bf16 bits, the rest
   as written.  The reference reads the port's bf16 as uint16 integers.
 
-* **elastic**: a DTensor leaf is gathered whole (``full_tensor``, then
-  copied to the host) on the calling thread, the counterpart of the
-  reference's ``np.asarray`` of a sharded array, so the files hold no
-  mesh; ``restore(shardings=...)`` distributes each array onto any mesh.
+* **elastic**: a DTensor leaf is gathered whole (``full_tensor``) on
+  the calling thread, the counterpart of the reference's ``np.asarray``
+  of a sharded array, so the files hold no mesh;
+  ``restore(shardings=...)`` distributes each array onto any mesh.  A
+  save gathers one leaf at a time (a
+  :class:`~repro_torch.models.params.Stacked` leaf one layer at a time,
+  into its stacked host buffer) and lets each card copy go before the
+  next, so a card holds one whole leaf beyond its state; a restore reads
+  and distributes one leaf at a time.
 
-Leaves may be tensors (on any device), DTensors, numpy arrays or numpy
-scalars; :meth:`restore` returns a tree of CPU tensors, or DTensors where
-``shardings`` says.
+Leaves may be tensors (on any device), DTensors, ``Stacked`` leaves, numpy
+arrays or numpy scalars; :meth:`restore` returns a tree of CPU tensors,
+or DTensors where ``shardings`` says.
 
 Under an initialised default process group a save is collective: every
 rank calls :meth:`save` in the same order (the gathers are collectives),
-only rank 0 writes and commits ``step_N``, and the other ranks wait at the
-group's barrier until it has (with ``async_save``, in :meth:`wait`, which
-every rank then calls).  Saving or restoring DTensors without a process
-group raises.
+only rank 0 copies the leaves to host memory, writes and commits
+``step_N``, and every rank learns the write's outcome from rank 0 (a
+broadcast), so a failed write raises on every rank: at once without
+``async_save``, else at the next :meth:`save` or :meth:`wait`, which
+every rank then calls.  Saving or restoring DTensors without a process
+group raises.  A rank that fails inside a collective (a gather) leaves
+the others waiting in it until the process group's timeout, as in any
+SPMD job.
 """
 from __future__ import annotations
 
@@ -44,6 +53,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
+
+from repro_torch.models.params import Stacked, whole
 
 
 def _flatten(tree, prefix=""):
@@ -90,18 +101,49 @@ def _need_group(what: str) -> None:
                            f"group (torch.distributed.init_process_group)")
 
 
-def _to_host(v) -> tuple[np.ndarray, str | None]:
-    """``(array, recorded dtype)``: bf16 tensors as their uint16 bits.  A
+def _host_copy(t: torch.Tensor, out: torch.Tensor | None = None
+               ) -> torch.Tensor:
+    """The one copy to host memory of a save: ``t`` into ``out`` (a
+    layer's slice of a stacked host leaf) or into a new CPU tensor.  A
     tensor is always copied, since training goes on updating it in place
-    while the write runs; a DTensor is gathered whole first."""
-    if isinstance(v, DTensor):
-        v = v.full_tensor()
+    while the write runs."""
+    if out is None:
+        return t.detach().to("cpu", copy=True)
+    return out.copy_(t.detach())
+
+
+def _as_numpy(t: torch.Tensor) -> tuple[np.ndarray, str | None]:
+    """A CPU tensor's array, with no copy: bf16 as its uint16 bits."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    return t.numpy(), None
+
+
+@torch.no_grad()
+def _to_host(v, keep: bool = True) -> tuple[np.ndarray | None, str | None]:
+    """``(array, recorded dtype)`` of one leaf, or ``(None, None)`` unless
+    ``keep``.  Every rank of a group calls this for every leaf in the same
+    order: each DTensor (each part of a ``Stacked`` leaf) is gathered whole
+    and, where ``keep``, copied to host before the next is gathered."""
+    if isinstance(v, Stacked):
+        out = None
+        for i, part in enumerate(v.parts):
+            part = whole(part)
+            if keep:
+                if out is None:
+                    out = torch.empty(v.shape, dtype=part.dtype)
+                _host_copy(part, out[i])
+        return _as_numpy(out) if keep else (None, None)
     if isinstance(v, torch.Tensor):
-        v = v.detach().to("cpu", copy=True)
-        if v.dtype == torch.bfloat16:
-            return v.view(torch.int16).numpy().view(np.uint16), "bfloat16"
-        return v.numpy(), None
-    return np.asarray(v), None
+        v = whole(v)
+        return _as_numpy(_host_copy(v)) if keep else (None, None)
+    return (np.asarray(v), None) if keep else (None, None)
+
+
+def _sharded(v) -> bool:
+    if isinstance(v, Stacked):
+        return any(isinstance(p, DTensor) for p in v.parts)
+    return isinstance(v, DTensor)
 
 
 def _from_host(a: np.ndarray, dtype: str | None) -> torch.Tensor:
@@ -123,19 +165,28 @@ class CheckpointManager:
     def save(self, step: int, state: dict, extra_meta: dict | None = None):
         """state: tree of tensors/arrays (params/opt/data cursors).  Returns
         the write's future under ``async_save`` on the rank that writes,
-        else None."""
+        else None.
+
+        Under a process group with ``async_save`` every rank first joins
+        the write in flight (:meth:`wait`), so its failure raises on every
+        rank here, before any rank gathers the next state."""
         flat = list(_flatten(state))
-        if any(isinstance(v, DTensor) for _, v in flat):
+        if any(_sharded(v) for _, v in flat):
             _need_group("saving DTensors")
+        if _rank() is not None and self._pool is not None:
+            self.wait()
+        keep = _rank() in (None, 0)
         host, dtypes = {}, {}
         for k, v in flat:
-            host[k], dt = _to_host(v)
+            a, dt = _to_host(v, keep)
+            if keep:
+                host[k] = a
             if dt is not None:
                 dtypes[k] = dt
         meta = dict(extra_meta or {})
         if dtypes:
             meta["dtypes"] = dtypes
-        if _rank() not in (None, 0):
+        if not keep:
             if self._pool is None:
                 self._committed()
             return None
@@ -221,7 +272,10 @@ class CheckpointManager:
         :class:`~repro_torch.sharding.specs.NamedSharding`: each array
         with one comes back as a DTensor on that mesh's device with its
         placements (``distribute_tensor``: every rank of the group calls
-        this); a path it lacks, or a ``None`` leaf, stays a CPU tensor."""
+        this); a path it lacks, or a ``None`` leaf, stays a CPU tensor.
+        The file is read one leaf at a time and each leaf placed before
+        the next is read, so with ``shardings`` a rank holds one whole
+        leaf on its host and its card beyond the sharded result."""
         if shardings is not None:
             _need_group("restoring onto a mesh")
         steps = self.list_steps()
@@ -231,13 +285,14 @@ class CheckpointManager:
         path = os.path.join(self.dir, f"step_{step:010d}")
         with open(os.path.join(path, "meta.json")) as f:
             dtypes = json.load(f).get("dtypes", {})
+        where = dict(_flatten(shardings)) if shardings is not None else {}
+        flat = {}
         with np.load(os.path.join(path, "arrays.npz")) as z:
-            flat = {k: _from_host(z[k], dtypes.get(k)) for k in z.files}
-        if shardings is not None:
-            where = dict(_flatten(shardings))
-            for k, t in flat.items():
+            for k in z.files:  # one leaf read (and placed) at a time
+                t = _from_host(z[k], dtypes.get(k))
                 to = where.get(k)
                 if to is not None:
-                    flat[k] = distribute_tensor(t.to(to.mesh.device_type),
-                                                to.mesh, tuple(to.placements))
+                    t = distribute_tensor(t.to(to.mesh.device_type),
+                                          to.mesh, tuple(to.placements))
+                flat[k] = t
         return step, _unflatten(flat)

@@ -417,6 +417,11 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
             f"a lookup with the table placed {table.placements} and the "
             f"tokens {tok_pl}")
     d = vocab[0]
+    if table.shape[0] % mesh.size(d):
+        # each shard's first row is rank x rows only for an even split
+        raise ValueError(
+            f"a table of {table.shape[0]} vocab rows split over a mesh "
+            f"dim of {mesh.size(d)}: the split must be even")
     # the table whole but for its vocab split (FSDP gathers d_model here);
     # each rank's gradient of it is a partial sum over the mesh dims that
     # split the tokens

@@ -12,7 +12,9 @@ two:
   by module parameter name;
 * :func:`from_reference` loads a reference tree (numpy arrays, as
   ``np.asarray`` of the JAX tree gives, or tensors) into a model;
-* :func:`to_reference` turns a model's parameters back into that tree.
+* :func:`to_reference` turns a model's parameters back into that tree;
+  ``stack(named, lazy=True)`` names that tree's leaves without building
+  them, for a checkpoint that gathers and copies one at a time.
 
 On a mesh (:func:`distribute_params`) the parameters are DTensors: the
 two directions gather each one whole (a collective: every rank calls them
@@ -196,14 +198,30 @@ def unstack(tree: dict) -> dict[str, torch.Tensor]:
     return flat
 
 
-def stack(named: dict[str, torch.Tensor]) -> dict:
+@dataclass(frozen=True)
+class Stacked:
+    """A stacked reference leaf not yet built: its per-layer tensors in
+    layer order (DTensors not gathered), stacked along a new axis 0 by
+    whoever copies it (:meth:`~repro_torch.checkpoint.CheckpointManager.
+    save` gathers and copies one part at a time)."""
+    parts: tuple
+
+    @property
+    def shape(self) -> tuple:
+        return (len(self.parts), *self.parts[0].shape)
+
+
+def stack(named: dict[str, torch.Tensor], *, lazy: bool = False) -> dict:
     """Inverse of :func:`unstack`: ``{name: tensor}`` -> reference tree,
     the per-layer tensors stacked along a new axis 0; DTensors gathered
-    whole first (:func:`whole`)."""
+    whole first (:func:`whole`).  With ``lazy`` nothing is gathered,
+    copied or stacked: each stacked leaf is a :class:`Stacked` of the
+    per-layer tensors, each other leaf the tensor itself."""
     tree: dict = {}
     per_layer: dict[tuple[str, str], dict[int, torch.Tensor]] = {}
     for name, t in named.items():
-        t = whole(t)
+        if not lazy:
+            t = whole(t)
         parts = name.split(".")
         if parts[0] in STACKED:
             key = (parts[0], ".".join(parts[2:]))
@@ -214,8 +232,9 @@ def stack(named: dict[str, torch.Tensor]) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = t
     for (group, name), by_index in per_layer.items():
-        tree.setdefault(group, {})[name] = torch.stack(
-            [by_index[i] for i in sorted(by_index)])
+        layers = [by_index[i] for i in sorted(by_index)]
+        tree.setdefault(group, {})[name] = (Stacked(tuple(layers)) if lazy
+                                            else torch.stack(layers))
     return tree
 
 

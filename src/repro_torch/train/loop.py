@@ -16,7 +16,15 @@ gradient is reduced to its parameter's placements once, and AdamW updates
 the DTensor parameters and moments in place.  The same step runs on one
 device, on a real process group and in the dry-run's fake one.  A
 Trainer's checkpoint holds whole arrays, whatever its mesh, so it resumes
-on another mesh or none (:meth:`Trainer.load_checkpoint`).
+on another mesh or none (:meth:`Trainer.load_checkpoint`); it is gathered
+one leaf at a time, and only rank 0 keeps a host copy.
+
+Under a process group every rank of :meth:`Trainer.run` agrees on each
+try of the forward and backward pass (one ``all_reduce`` of a failure
+flag): if any rank failed, every rank retries, and past ``max_retries``
+every rank raises.  A rank that fails inside a collective leaves the
+others waiting in it until the process group's timeout, as in any SPMD
+job; the Trainer does not handle that.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.models import params as P
@@ -68,6 +77,19 @@ def _rules(mesh, rules):
     if mesh is None:
         return contextlib.nullcontext()
     return set_rules(mesh, rules)
+
+
+def _failed_anywhere(failed: bool) -> bool:
+    """Whether a try failed on any rank of the default process group (an
+    ``all_reduce`` MAX of the flag, which every rank calls), or here when
+    there is no group."""
+    if not dist.is_initialized():
+        return failed
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    flag = torch.tensor([int(failed)], dtype=torch.int32, device=dev)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
 
 
 def make_grad_fn(model, *, microbatches: int = 1,
@@ -181,14 +203,23 @@ class Trainer:
             tries = 0
             with _rules(self.mesh, self.rules):
                 while True:
+                    err = None
                     try:
                         loss, grads = self.grad_fn(batch)
                         self._sync()
+                    except Exception as e:
+                        err = e
+                    # every rank retries, or none does
+                    if not _failed_anywhere(err is not None):
                         break
-                    except Exception:
-                        tries += 1
-                        if tries > self.tcfg.max_retries:
-                            raise
+                    loss = grads = None
+                    tries += 1
+                    if tries > self.tcfg.max_retries:
+                        if err is not None:
+                            raise err
+                        raise RuntimeError(
+                            f"step {step}: the forward and backward pass "
+                            f"failed on another rank, {tries} tries")
                 # writes in place: once, never retried
                 metrics = apply_update(self.model, opt_state, loss, grads,
                                        self.opt_cfg)
@@ -218,12 +249,16 @@ class Trainer:
         return opt_state
 
     def checkpoint_state(self, opt_state: dict, data_step: int) -> dict:
-        """The reference's checkpoint tree: stacked parameters and moments,
-        the optimizer step as an int32 scalar, the data cursor.  On a mesh
-        each DTensor is gathered whole (every rank calls this)."""
-        return {"params": P.to_reference(self.model),
-                "opt": {"m": P.stack(opt_state["m"]),
-                        "v": P.stack(opt_state["v"]),
+        """The reference's checkpoint tree, its leaves named but not built:
+        the parameters and moments as :func:`~repro_torch.models.params.
+        stack` ``(lazy=True)`` gives them, the optimizer step as an int32
+        scalar, the data cursor.  :meth:`CheckpointManager.save
+        <repro_torch.checkpoint.CheckpointManager.save>` gathers and
+        copies one leaf at a time (every rank calls it on a mesh)."""
+        params = {n: p.detach() for n, p in self.model.named_parameters()}
+        return {"params": P.stack(params, lazy=True),
+                "opt": {"m": P.stack(opt_state["m"], lazy=True),
+                        "v": P.stack(opt_state["v"], lazy=True),
                         "step": np.int32(opt_state["step"])},
                 "data": {"step": np.int64(data_step)}}
 
@@ -231,11 +266,17 @@ class Trainer:
         """Load a restored checkpoint tree (either package's, written on
         any mesh or none) into the model and return its optimizer state.
         On a mesh each parameter and its moments are distributed with the
-        parameter's placements, as ``init_opt_state`` lays them."""
+        parameter's placements, as ``init_opt_state`` lays them; a leaf
+        that arrives so placed (``restore(shardings=...)``) is copied as
+        it is, not gathered whole again."""
         P.from_reference(self.model, state["params"])
         names = dict(self.model.named_parameters())
 
         def moment(t, p):
+            if (isinstance(p, DTensor) and isinstance(t, DTensor)
+                    and t.device_mesh == p.device_mesh
+                    and tuple(t.placements) == tuple(p.placements)):
+                return t.detach().to(torch.float32, copy=True)  # placed
             t = P.whole(t).to(self.device, torch.float32, copy=True)
             if isinstance(p, DTensor):
                 return distribute_tensor(t, p.device_mesh, p.placements)

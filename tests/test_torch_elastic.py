@@ -15,6 +15,16 @@ DTensors saved asynchronously (rank 0 alone writes), and saving or
 restoring DTensors once the group is gone.  The bounds are the reference
 test's: the next loss within 1e-4 of the uninterrupted one; the (2, 4)
 losses within 1e-5 of the reference's.
+
+The same script counts what a save and a restore hold: the bytes each
+rank copies to host memory during the (2, 4) Trainer's save (through
+the manager's one host-copy function), and the order in which a restore
+reads and places its leaves.  It also fails ranks on purpose: rank 3's
+forward and backward pass once (with retries, and with none), and rank
+0's asynchronous write; every rank must then retry or raise together.
+A vocab-split embedding table whose rows do not divide the mesh dim must
+raise.  The group has a 60 s timeout and the script 300 s, so a rank
+left waiting in a collective fails the run rather than hanging it.
 """
 import json
 import os
@@ -70,6 +80,7 @@ REFERENCE = """
 """
 
 PORT = """
+    import datetime
     import json
     import os
     import sys
@@ -78,13 +89,17 @@ PORT = """
     import torch
     import torch.distributed as dist
     import torch.multiprocessing as mp
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
 
+    import repro_torch.checkpoint.manager as M
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs.base import get_arch, reduced
     from repro_torch.data import TokenPipeline
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import params as P
     from repro_torch.models.api import build_model, rules_for
+    from repro_torch.models.layers import embed
     from repro_torch.sharding.specs import NamedSharding
     from repro_torch.train.loop import Trainer, TrainerConfig
     from repro_torch.train.optimizer import AdamWConfig
@@ -133,15 +148,136 @@ PORT = """
         return tr.history[0]["loss"], placed
 
 
+    def gathered(x):
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, x)
+        return out
+
+
+    COPIES = []
+
+
+    def count_host_copies():
+        # count every copy to host memory the manager makes (its bytes);
+        # a manager without one host-copy function counts nothing
+        copy = getattr(M, "_host_copy", None)
+        if copy is None:
+            return False
+
+        def counting(t, out=None):
+            COPIES.append(t.numel() * t.element_size())
+            return copy(t, out)
+
+        M._host_copy = counting
+        return True
+
+
+    def logged_restore(mgr, shardings):
+        # mgr.restore(shardings=...) with each leaf read ("r") and each
+        # leaf placed ("p") logged in order
+        seq, read, place = [], M._from_host, M.distribute_tensor
+        M._from_host = lambda *a: (seq.append("r"), read(*a))[1]
+        M.distribute_tensor = lambda *a: (seq.append("p"), place(*a))[1]
+        try:
+            step, tree = mgr.restore(shardings=shardings)
+        finally:
+            M._from_host, M.distribute_tensor = read, place
+        with np.load(os.path.join(mgr.dir, f"step_{step:010d}",
+                                  "arrays.npz")) as z:
+            files = z.files
+        flat = dict(P.flatten(tree))
+        want = "".join("rp" if isinstance(flat[k], DTensor) else "r"
+                       for k in files)
+        return step, tree, {"seq": "".join(seq), "want": want}
+
+
+    def failing_grad(tr, rank, fail_rank=3):
+        # tr's forward and backward pass fails once on fail_rank, after
+        # its collectives; returns the list of calls
+        grad_fn, calls = tr.grad_fn, []
+
+        def fails_once(batch):
+            out = grad_fn(batch)
+            calls.append(len(calls))
+            if rank == fail_rank and len(calls) == 1:
+                raise RuntimeError("injected backward failure")
+            return out
+
+        tr.grad_fn = fails_once
+        return calls
+
+
+    def failure_cases(rank, d, init):
+        # every rank retries a pass that failed on one rank, or raises
+        # with it; a failed asynchronous write raises on every rank
+        res = {}
+        clean = trainer((2, 4))
+        clean.run(clean.load_checkpoint(init), start_step=0, steps=1)
+        want = {n: p.to_local() for n, p in clean.model.named_parameters()}
+        flaky = trainer((2, 4))
+        calls = failing_grad(flaky, rank)
+        flaky.run(flaky.load_checkpoint(init), start_step=0, steps=1)
+        res["retry_calls"] = gathered(calls)
+        res["retry_equal"] = gathered(all(
+            torch.equal(p.to_local(), want[n])
+            for n, p in flaky.model.named_parameters()))
+        strict = trainer((2, 4))
+        strict.tcfg.max_retries = 0
+        failing_grad(strict, rank)
+        try:
+            strict.run(strict.load_checkpoint(init), start_step=0, steps=1)
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        res["no_retry_raised"] = gathered(raised)
+        res["no_retry_history"] = gathered(len(strict.history))
+
+        mgr = CheckpointManager(d + "/failing_ckpt", async_save=True)
+        if rank == 0:
+            write = mgr._write
+
+            def fails_at_1(step, *a):
+                if step == 1:
+                    raise OSError("injected write failure")
+                return write(step, *a)
+
+            mgr._write = fails_at_1
+        small = {"x": np.arange(4, dtype=np.float32)}
+        mgr.save(1, small)
+        try:
+            mgr.save(2, small)
+            raised = None
+        except (OSError, RuntimeError) as e:
+            raised = str(e)
+        mgr.wait()
+        res["write_raised"] = gathered(raised)
+        res["failing_listing"] = sorted(os.listdir(d + "/failing_ckpt"))
+        return res
+
+
+    def uneven_embed(mesh):
+        # a table of 10 vocab rows split over the 4-wide model dim
+        table = distribute_tensor(torch.randn(10, 4), mesh,
+                                  (Replicate(), Shard(0)))
+        try:
+            embed(torch.zeros(2, 3, dtype=torch.long), table)
+            return "returned"
+        except ValueError as e:
+            return str(e)
+
+
     def worker(rank, port, d):
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                                rank=rank, world_size=8)
-        res = {}
+                                rank=rank, world_size=8,
+                                timeout=datetime.timedelta(seconds=60))
+        res = {"host_copy_counted": count_host_copies()}
         # (2, 4): the reference's initial state, restored onto the mesh
         tr = trainer((2, 4), ckpt=CheckpointManager(d + "/port_ckpt"))
         _, init = CheckpointManager(d + "/init").restore(
             shardings=state_shardings((2, 4), False))
         tr.run(tr.load_checkpoint(init), start_step=0, steps=3)
+        res["host_copies"] = gathered([sum(COPIES), len(COPIES)])
+        res["n_params"] = len(list(tr.model.parameters()))
         res["losses_2x4"] = [h["loss"] for h in tr.history]
         res["port_ckpt"] = sorted(os.listdir(d + "/port_ckpt"))
         for name, args in (
@@ -163,7 +299,8 @@ PORT = """
 
         # a tree of DTensors on (4, 2), saved asynchronously
         shard = state_shardings((4, 2), True)
-        _, tree = CheckpointManager(d + "/port_ckpt").restore(shardings=shard)
+        _, tree, res["restore_order"] = logged_restore(
+            CheckpointManager(d + "/port_ckpt"), shard)
         leaves = list(P.flatten(tree["params"]))
         res["restored_placements"] = {
             k: [repr(x) for x in v.placements] for k, v in leaves}
@@ -182,6 +319,8 @@ PORT = """
         dist.all_gather_object(res["writes"], writes)
         if rank == 0:
             np.savez(d + "/full.npz", **full)
+        res.update(failure_cases(rank, d, init))
+        res["uneven_embed"] = uneven_embed(layout((2, 4), False)[0])
         x = tree["params"]["embed"]
         mesh = x.device_mesh
         dist.barrier()
@@ -308,3 +447,56 @@ def test_dtensors_without_a_process_group_raise(runs, tmp_path):
     mgr.save(1, {"a": np.zeros(4, np.float32)})
     with pytest.raises(RuntimeError, match="process group"):
         mgr.restore(shardings={"a": NamedSharding(None, ())})
+
+
+def test_save_copies_each_leaf_once_on_rank_0_alone(runs):
+    """The (2, 4) Trainer's save: rank 0 copies every parameter and
+    moment to host memory once (the bytes of the file's arrays, one copy
+    a module parameter and moment); no other rank copies a byte."""
+    _, port, d = runs
+    assert port["host_copy_counted"], "the manager has no _host_copy"
+    with np.load(d / "port_ckpt" / "step_0000000002" / "arrays.npz") as z:
+        want = sum(z[k].nbytes for k in z.files if z[k].ndim)
+    assert port["host_copies"][0] == [want, 3 * port["n_params"]]
+    assert port["host_copies"][1:] == [[0, 0]] * 7
+
+
+def test_restore_reads_one_leaf_at_a_time(runs):
+    """``restore(shardings=...)`` places each leaf before it reads the
+    next ("r" a read, "p" a placement, in the file's order)."""
+    _, port, _ = runs
+    order = port["restore_order"]
+    assert "p" in order["want"] and order["seq"] == order["want"], order
+
+
+def test_a_failed_gradient_is_retried_by_every_rank(runs):
+    """rank 3's pass fails once after its collectives: every rank runs
+    the pass twice, and the step is bit-equal to a clean one's."""
+    _, port, _ = runs
+    assert port["retry_calls"] == [[0, 1]] * 8
+    assert port["retry_equal"] == [True] * 8
+
+
+def test_past_max_retries_every_rank_raises(runs):
+    _, port, _ = runs
+    raised = port["no_retry_raised"]
+    assert "injected backward failure" in raised[3], raised
+    for r in (0, 1, 2, 4, 5, 6, 7):
+        assert raised[r] and "another rank" in raised[r], raised
+    assert port["no_retry_history"] == [0] * 8
+
+
+def test_a_failed_async_write_raises_on_every_rank(runs):
+    """rank 0's background write of step 1 fails: the next ``save``
+    raises on every rank, before any rank gathers step 2."""
+    _, port, _ = runs
+    raised = port["write_raised"]
+    assert "injected write failure" in raised[0], raised
+    for r in range(1, 8):
+        assert raised[r] and "rank 0 failed" in raised[r], raised
+    assert port["failing_listing"] == []
+
+
+def test_embed_refuses_an_uneven_vocab_split(runs):
+    _, port, _ = runs
+    assert "split must be even" in port["uneven_embed"], port["uneven_embed"]
