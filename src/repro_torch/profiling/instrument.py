@@ -4,8 +4,9 @@ Port of :mod:`repro.profiling.instrument`.  One :class:`Profiler` per
 worker accumulates *exclusive* sparse metrics onto a program-structure
 CCT:
 
-* host contexts (``data``, ``dispatch``, ``checkpoint``) carry host-side
-  step metrics;
+* host contexts carry host-side step metrics: ``train`` the step's time,
+  ``data`` its wait for the batch, ``dispatch`` the host's time issuing
+  the gradient and the update, ``checkpoint`` the checkpoint's stall;
 * op contexts under ``train/`` carry device-side metrics (bytes moved, op
   counts, collective bytes, FLOPs) from the attribution of one train step
   (:mod:`repro_torch.profiling.dispatch_attrib`, where the reference
@@ -13,18 +14,22 @@ CCT:
 
 ``finish()`` writes the per-worker profile in the paper's sparse
 measurement format plus a sample trace, readable by both packages'
-``MeasurementProfile.load`` and ``analyze``.
+``MeasurementProfile.load`` and ``analyze``.  The trace's times are
+seconds of :func:`~repro_torch.obs.monotime` from the Profiler's start;
+the environment's ``clock`` places them on ``torch.profiler``'s clock
+(:func:`~repro_torch.obs.clock.to_trace_ns` of ``t0`` plus the time), as
+the Trainer's spans are.
 """
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 
 from repro_torch.core.cct import KIND_MODULE, KIND_OP, KIND_PHASE, ContextTree
 from repro_torch.core.metrics import default_registry
 from repro_torch.core.sparse import MeasurementProfile, SparseMetrics, Trace
+from repro_torch.obs import clock
 from repro_torch.profiling import dispatch_attrib
 
 
@@ -38,7 +43,7 @@ class Profiler:
         self._trace_t: list[float] = []
         self._trace_c: list[int] = []
         self._trace_on = trace
-        self._t0 = time.perf_counter()
+        self._t0 = clock.monotime()
         self._structures: list[str] = []
         # host phase contexts
         self._phase = {
@@ -57,16 +62,21 @@ class Profiler:
 
     def sample(self, ctx: int) -> None:
         if self._trace_on:
-            self._trace_t.append(time.perf_counter() - self._t0)
+            self._trace_t.append(clock.monotime() - self._t0)
             self._trace_c.append(ctx)
 
     # -- hooks --------------------------------------------------------------------
     def on_step(self, rec: dict) -> None:
-        """Trainer hook: host-side metrics on host contexts."""
+        """Trainer hook: host-side metrics on host contexts, one trace
+        sample."""
         t = self._phase["train"]
         self.add(t, "host.step_time", rec.get("step_time", 0.0))
         self.add(self._phase["data"], "host.data_wait",
                  rec.get("data_wait", 0.0))
+        self.add(self._phase["dispatch"], "host.dispatch",
+                 rec.get("dispatch", 0.0))
+        self.add(self._phase["checkpoint"], "host.checkpoint_io",
+                 rec.get("checkpoint", 0.0))
         self.sample(t)
 
     def attribute_step(self, records, *, binary: str = "step",
@@ -113,7 +123,9 @@ class Profiler:
         vals = np.array(list(self._acc.values()), dtype=np.float64)
         prof = MeasurementProfile(
             environment={"app": "repro_torch",
-                         "registry": self.registry.to_json()},
+                         "registry": self.registry.to_json(),
+                         "clock": {"t0": self._t0,
+                                   "trace_anchor_ns": clock.TRACE_ANCHOR_NS}},
             identity=self.identity,
             file_paths=list(self._structures),
             tree=self.tree,

@@ -25,11 +25,24 @@ flag): if any rank failed, every rank retries, and past ``max_retries``
 every rank raises.  A rank that fails inside a collective leaves the
 others waiting in it until the process group's timeout, as in any SPMD
 job; the Trainer does not handle that.
+
+Each step of :meth:`Trainer.run` records its phases as spans in the
+process flight recorder (``obs.recorder()``; :data:`TRAIN_SPANS`, op
+``"train"``, the step as trace id), timed on :func:`~repro_torch.obs.
+monotime`.  ``train.grad`` and ``train.update`` are recorded inside
+:func:`make_grad_fn`'s ``grad_fn`` and :func:`apply_update`: the host's
+time to issue the work, whatever wraps the calls.  ``train.step`` carries
+the step's increase in the caching allocator's retries and ``cudaMalloc``
+calls: one read of the statistics at each step's end, less the read that
+ended the step before (or began the run).  A disabled recorder
+(``REPRO_TRACE_RING=0``) records nothing and reads no allocator
+statistics.  docs/torch_training_spans.md lists the spans and lays them
+over a ``torch.profiler`` trace.
 """
 from __future__ import annotations
 
 import contextlib
-import time
+from contextvars import ContextVar
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,10 +50,64 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch import obs
 from repro_torch.models import params as P
 from repro_torch.sharding.specs import distribute, set_rules
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
+
+
+#: the spans a Trainer step records (docs/torch_training_spans.md)
+TRAIN_SPANS = ("train.step", "train.data", "train.grad", "train.grad.sync",
+               "train.update", "train.update.sync", "train.readback",
+               "train.hook", "train.checkpoint")
+
+
+class _StepSpans:
+    """The spans of one Trainer step: ``record`` puts one in the flight
+    recorder under the step and returns its seconds; ``issue`` sums the
+    seconds of ``train.grad`` and ``train.update``."""
+
+    def __init__(self, step: int):
+        self.step, self.rec, self.issue = step, obs.recorder(), 0.0
+
+    def record(self, name: str, t0: float, t1: float | None = None,
+               parent: str | None = "train.step", **attrs) -> float:
+        t1 = obs.monotime() if t1 is None else t1
+        if self.rec.enabled:
+            self.rec.record(name, "train", t0, t1 - t0,
+                            trace_id=str(self.step),
+                            attrs={"step": self.step, "parent": parent,
+                                   **attrs})
+        return t1 - t0
+
+
+#: the step that :meth:`Trainer.run` is in, for the spans recorded inside
+#: the functions it calls (none outside a Trainer step)
+_STEP: ContextVar[_StepSpans | None] = ContextVar("train_step", default=None)
+
+
+@contextlib.contextmanager
+def _issue(name: str):
+    """Span ``name`` around the host's issue of a step's work, when a
+    Trainer step is running."""
+    spans = _STEP.get()
+    t0 = obs.monotime()
+    try:
+        yield
+    finally:
+        if spans is not None:
+            spans.issue += spans.record(name, t0)
+
+
+def _alloc_counts(device) -> tuple[int, int] | None:
+    """The caching allocator's retries and ``cudaMalloc`` calls so far on
+    ``device``, or None off the card."""
+    if device.type != "cuda":
+        return None
+    # the nested form: a seventh of ``memory_stats``' cost, the same counts
+    s = torch.cuda.memory_stats_as_nested_dict(device)
+    return s["num_alloc_retries"], s["num_device_alloc"]
 
 
 @dataclass
@@ -104,6 +171,10 @@ def make_grad_fn(model, *, microbatches: int = 1,
     """
 
     def grad_fn(batch: dict) -> tuple[torch.Tensor, dict]:
+        with _issue("train.grad"):
+            return _grad(batch)
+
+    def _grad(batch: dict) -> tuple[torch.Tensor, dict]:
         if microbatches == 1:
             return value_and_grad(model, batch)
         for k, v in batch.items():
@@ -132,8 +203,9 @@ def apply_update(model, opt_state: dict, loss: torch.Tensor, grads: dict,
                  opt_cfg: AdamWConfig) -> dict:
     """AdamW on ``model``'s parameters and ``opt_state``, in place; returns
     the step's metrics."""
-    metrics = adamw_update(dict(model.named_parameters()), grads, opt_state,
-                           opt_cfg)
+    with _issue("train.update"):
+        metrics = adamw_update(dict(model.named_parameters()), grads,
+                               opt_state, opt_cfg)
     metrics["loss"] = loss
     return metrics
 
@@ -188,65 +260,106 @@ class Trainer:
     def run(self, opt_state: dict, *, start_step: int = 0,
             steps: int | None = None) -> dict:
         steps = steps if steps is not None else self.tcfg.steps
-        for step in range(start_step, start_step + steps):
-            t_data = time.perf_counter()
-            batch = {"tokens": torch.from_numpy(
-                self.pipeline.batch_at(step)).to(self.device)}
-            if self.mesh is not None:
-                batch = {"tokens": distribute(batch["tokens"],
-                                              ("batch", "seq"), self.mesh,
-                                              self.rules)}
-            data_wait = time.perf_counter() - t_data
+        stop = start_step + steps
+        allocs = (_alloc_counts(self.device) if obs.recorder().enabled
+                  else None)
+        for step in range(start_step, stop):
+            spans = _StepSpans(step)
+            token = _STEP.set(spans)
+            try:
+                allocs = self._step(opt_state, spans, allocs,
+                                    last=step + 1 == stop)
+            finally:
+                _STEP.reset(token)
+        return opt_state
 
-            self._sync()
-            t0 = time.perf_counter()
-            tries = 0
-            with _rules(self.mesh, self.rules):
-                while True:
-                    err = None
-                    try:
-                        loss, grads = self.grad_fn(batch)
-                        self._sync()
-                    except Exception as e:
-                        err = e
-                    # every rank retries, or none does
-                    if not _failed_anywhere(err is not None):
-                        break
-                    loss = grads = None
-                    tries += 1
-                    if tries > self.tcfg.max_retries:
-                        if err is not None:
-                            raise err
-                        raise RuntimeError(
-                            f"step {step}: the forward and backward pass "
-                            f"failed on another rank, {tries} tries")
-                # writes in place: once, never retried
-                metrics = apply_update(self.model, opt_state, loss, grads,
-                                       self.opt_cfg)
-            del grads
-            self._sync()
-            dt = time.perf_counter() - t0
+    def _step(self, opt_state: dict, spans: _StepSpans, allocs, last: bool):
+        """One step of :meth:`run`, its spans in ``spans``; the last step
+        of a run joins the checkpoint in flight.  ``allocs`` is the
+        allocator's counts as the step begins (None: not read); returns
+        them as it ends."""
+        step = spans.step
+        t_step = obs.monotime()
+        batch = {"tokens": torch.from_numpy(
+            self.pipeline.batch_at(step)).to(self.device)}
+        if self.mesh is not None:
+            batch = {"tokens": distribute(batch["tokens"],
+                                          ("batch", "seq"), self.mesh,
+                                          self.rules)}
+        data_wait = obs.monotime() - t_step
 
-            if self.tcfg.deadline_s and dt > self.tcfg.deadline_s:
-                # straggler mitigation: record, ask the pipeline to rebalance
-                self.straggler_events.append({"step": step, "dt": dt})
-                if hasattr(self.pipeline, "delay_s"):
-                    self.pipeline.delay_s = 0.0  # drop the slow path
+        self._sync()
+        t0 = obs.monotime()
+        spans.record("train.data", t_step, t0)
+        tries = 0
+        with _rules(self.mesh, self.rules):
+            while True:
+                err = None
+                try:
+                    loss, grads = self.grad_fn(batch)
+                    t = obs.monotime()
+                    self._sync()
+                    spans.record("train.grad.sync", t)
+                except Exception as e:
+                    err = e
+                # every rank retries, or none does
+                if not _failed_anywhere(err is not None):
+                    break
+                loss = grads = None
+                tries += 1
+                if tries > self.tcfg.max_retries:
+                    if err is not None:
+                        raise err
+                    raise RuntimeError(
+                        f"step {step}: the forward and backward pass "
+                        f"failed on another rank, {tries} tries")
+            # writes in place: once, never retried
+            metrics = apply_update(self.model, opt_state, loss, grads,
+                                   self.opt_cfg)
+        del grads
+        t = obs.monotime()
+        self._sync()
+        t1 = obs.monotime()
+        spans.record("train.update.sync", t, t1)
+        dt = t1 - t0
 
-            # on a mesh the loss is a DTensor (a partial sum over the
-            # batch axes): its whole value, not this rank's part
-            rec = {"step": step, "loss": float(P.whole(metrics["loss"])),
-                   "grad_norm": float(P.whole(metrics["grad_norm"])),
-                   "step_time": dt, "data_wait": data_wait}
-            self.history.append(rec)
-            if self.profiler is not None:
-                self.profiler.on_step(rec)
-            if self.ckpt is not None and (step + 1) % self.tcfg.ckpt_every == 0:
+        if self.tcfg.deadline_s and dt > self.tcfg.deadline_s:
+            # straggler mitigation: record, ask the pipeline to rebalance
+            self.straggler_events.append({"step": step, "dt": dt})
+            if hasattr(self.pipeline, "delay_s"):
+                self.pipeline.delay_s = 0.0  # drop the slow path
+
+        t = obs.monotime()
+        # on a mesh the loss is a DTensor (a partial sum over the
+        # batch axes): its whole value, not this rank's part
+        rec = {"step": step, "loss": float(P.whole(metrics["loss"])),
+               "grad_norm": float(P.whole(metrics["grad_norm"])),
+               "step_time": dt, "data_wait": data_wait,
+               "dispatch": spans.issue, "checkpoint": 0.0}
+        spans.record("train.readback", t)
+        self.history.append(rec)
+        if self.ckpt is not None:
+            t = obs.monotime()
+            saving = (step + 1) % self.tcfg.ckpt_every == 0
+            if saving:
                 self.ckpt.save(step + 1,
                                self.checkpoint_state(opt_state, step + 1))
-        if self.ckpt is not None:
-            self.ckpt.wait()
-        return opt_state
+            if last:
+                self.ckpt.wait()
+            if saving or last:
+                rec["checkpoint"] = spans.record("train.checkpoint", t)
+        if self.profiler is not None:
+            t = obs.monotime()
+            self.profiler.on_step(rec)
+            spans.record("train.hook", t)
+        counters = {}
+        if allocs is not None:
+            now = _alloc_counts(self.device)
+            counters = {"num_alloc_retries": now[0] - allocs[0],
+                        "num_device_alloc": now[1] - allocs[1]}
+            allocs = now
+        spans.record("train.step", t_step, parent=None, **counters)
+        return allocs
 
     def checkpoint_state(self, opt_state: dict, data_step: int) -> dict:
         """The reference's checkpoint tree, its leaves named but not built:

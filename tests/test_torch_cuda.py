@@ -1053,6 +1053,28 @@ def _elastic_trainer(device, fsdp, ckpt=None):
                    mesh=mesh, rules=rules)
 
 
+def test_the_trainer_counts_the_allocators_device_calls(dev, monkeypatch):
+    """Reduced qwen3-0.6b in a Trainer on the card, the allocator's cache
+    emptied after a warm step: the next step calls ``cudaMalloc`` and its
+    ``train.step`` span counts those calls (``num_device_alloc``), the
+    step after it, served from the cache, fewer; no retry."""
+    from repro_torch import obs
+    from repro_torch.obs import trace as obs_trace
+    monkeypatch.setattr(obs_trace, "_recorder", obs_trace._recorder)
+    ring = obs.configure(256)
+    tr = _elastic_trainer(dev, None)
+    opt = tr.init_state(torch.Generator(device=dev).manual_seed(0))
+    tr.run(opt, steps=1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tr.run(opt, start_step=1, steps=2)
+    got = {s.attrs["step"]: s.attrs for s in ring.snapshot()
+           if s.name == "train.step"}
+    assert got[1]["num_device_alloc"] > 0, got
+    assert got[2]["num_device_alloc"] < got[1]["num_device_alloc"], got
+    assert all(a["num_alloc_retries"] == 0 for a in got.values()), got
+
+
 @pytest.mark.parametrize("written_on,onto", [("card_mesh", "card_mesh"),
                                              ("card_mesh", "card_plain"),
                                              ("cpu_plain", "card_mesh")])
