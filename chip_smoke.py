@@ -126,7 +126,10 @@ read just after:
     skewed ids and on the census ids moved past S (``histogram_dropped``,
     nothing counted), each one kernel a call; the float ``scatter_add`` at
     the census shape, at 40 columns and on a skewed input (90% of 200,000
-    rows in one segment).
+    rows in one segment).  The last row, ``head_xent``, is the training
+    head's forward and backward at the MoE cell's shape: its two passes'
+    launches and device time, the whole call's, its plain version's, and
+    its bound (its three products at the bf16 peak).
 11. The other families at full width, each freeing the card before the
     next.  ``train_moe`` — qwen3-moe-30b-a3b (128 experts top-8, capacity
     factor 1.25) cut to 2 of 48 layers (the smoke's time: every dry-run
@@ -219,12 +222,14 @@ read just after:
     (its sorted dispatch on DTensors), each at 8 x 128 on a 1x1 mesh,
     against that step on the card on a one-rank NCCL group: the DTensor
     step's loss within 1e-5 of the plain step's, ``FlopCounterMode``'s
-    FLOPs of the plain step equal to the predicted dot FLOPs, the peak
+    FLOPs of the plain step equal to the predicted dot FLOPs and the plain
+    loss head's five extra products, the peak
     within 15% of the predicted one, the parameters' and moments' bytes
     equal to the predicted argument bytes less the batch and the int32
     step, and the median step no faster than the roofline bound.
     ``python3 chip_smoke.py --dryrun-only`` runs these two phases alone
-    (and is not the smoke); ``--elastic-only`` runs ``elastic`` alone.
+    (and is not the smoke); ``--elastic-only`` runs ``elastic`` alone,
+    ``--head-only`` the ``kernels`` line's ``head_xent`` row alone.
 15. ``elastic`` — checkpoints of DTensor state across meshes, on a
     one-rank NCCL group: qwen3-0.6b whole in f32 at batch 8 x 128, a
     ``Trainer`` on a (1, 1) mesh takes two AdamW steps, saves with
@@ -298,6 +303,11 @@ SSM_SCAN_SHAPES = {"zamba2": dict(H=112, P=64, N=64, Hk=1),
                    "xlstm": dict(H=4, P=513, N=512, Hk=4)}
 SSM_SCAN_CHUNKS = (256, 64)
 SSM_SCAN_TOL = 1e-4  # of each tensor's largest: the chunkings sum apart
+# the training head at the MoE benchmark cell's shape (batch 8 x 2,048,
+# width 2,048, vocab 151,936, chunks of 512); its least time is its three
+# products at the bf16 dense peak
+HEAD_SHAPE = dict(B=8, S=2048, D=2048, V=151_936)
+BF16_FLOP_PER_S = 989e12
 FAMILY_PARITY = {"moe": (MOE_ARCH, {"n_layers": 2}),
                  "vlm": (VLM_ARCH, {"n_layers": 5}),
                  "audio": (AUDIO_ARCH, {"n_layers": 2, "encoder_layers": 2}),
@@ -648,6 +658,68 @@ def kernel_entry(name, source, replaces, launches, kernel, plain, library,
 def _bits(t):
     import torch
     return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def head_xent_entry() -> dict:
+    """The training head (``kernels.xent.head_xent``, forward and backward)
+    at ``HEAD_SHAPE``: its f32 gradients against its plain version's on
+    the card (the passes in PyTorch, f32 GEMMs of the upcast operands)
+    within ``RTOL`` of each one's largest; the launches of one call; the
+    call's time and device time, the two passes' own device time per call
+    (``kernel_ms``), the plain version's time; the bound, its three
+    products at the bf16 dense peak.  Device times come from one profiled
+    call after the warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import xent
+    from repro_torch.models.layers import next_token_xent
+    B, S, D, V = (HEAD_SHAPE[k] for k in "BSDV")
+    g = torch.Generator(device="cuda").manual_seed(SEED_FLOAT)
+    x = torch.randn(B, S, D, generator=g, device="cuda").bfloat16()
+    w = (torch.randn(D, V, generator=g, device="cuda") * 0.02).bfloat16()
+    tokens = torch.randint(0, V, (B, S), generator=g, device="cuda")
+    labels = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(B, S, device="cuda")
+    mask[:, -1] = 0.0
+    got = xent.head_xent_grads(x, w, labels, mask)
+    want = xent.head_xent_grads(x, w, labels, mask, plain=True)
+    err = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(got, want))
+    del got, want
+    require(err <= RTOL, f"head_xent: {err} off its plain version")
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+
+    def call(loss_fn=next_token_xent):
+        xg.grad = wg.grad = None
+        loss_fn(xg, wg, tokens).backward()
+
+    before = _build.launch_counts.snapshot()
+    call()
+    torch.cuda.synchronize()
+    after = _build.launch_counts.snapshot()
+    launches = {k: after.get(k, 0) - before.get(k, 0)
+                for k in (xent.ROWS, xent.SPLIT)}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    flop = 3 * 2 * B * S * D * V
+    return {"name": "head_xent", "route": "cuda",
+            "source": "src/repro_torch/csrc/xent.cu", "replaces": None,
+            "on_path": True, "shape": HEAD_SHAPE, "launches": launches,
+            "max_rel_err": err, "tolerance": RTOL,
+            "call_ms": time_ms(call, 5),
+            "device_ms": sum(_dev_us(e) for e in events) / 1e3,
+            "kernel_ms": sum(_dev_us(e) for e in events
+                             if "xent_" in e.key) / 1e3,
+            "plain_ms": time_ms(lambda: call(
+                lambda a, b, t: xent.head_xent_plain(
+                    a, b, torch.roll(t, -1, dims=1), mask)), 3),
+            "bound_ms": flop / BF16_FLOP_PER_S * 1e3,
+            "bound_by": "operations", "flop": flop}
 
 
 def combine_repeats_phase(ipaths, n_ctx: int, device: str = "cuda") -> dict:
@@ -2446,7 +2518,10 @@ def dryrun_check_row(arch: str, layers, predict: subprocess.Popen) -> dict:
     (:func:`start_prediction`), against the same step on the card
     on a real one-rank NCCL group: the DTensor step's loss against the
     plain step's; ``FlopCounterMode``'s FLOPs of the plain step (the same
-    local ops) against the predicted dot FLOPs; the DTensor step's peak
+    local ops) against the predicted dot FLOPs, plus the five products by
+    which the plain bf16 step's loss head (``kernels.xent.head_xent``)
+    outdoes the DTensor step's (the logits recomputed, dx and dw over three
+    terms of the gradient each); the DTensor step's peak
     ``max_memory_allocated`` against the predicted peak, and its
     parameters' and moments' bytes against the predicted argument bytes
     less the batch and the int32 step; the median of CHECK_STEPS steps
@@ -2484,6 +2559,7 @@ def dryrun_check_row(arch: str, layers, predict: subprocess.Popen) -> dict:
     with FlopCounterMode(display=False) as fc:
         plain = make_train_step(model, AdamWConfig())(opt, {"tokens": tokens})
     plain_loss, plain_flops = float(plain["loss"]), fc.get_total_flops()
+    head_extra = 5 * 2 * TRAIN_BATCH * TRAIN_SEQ * cfg.d_model * cfg.vocab_size
     del model, opt, plain
     free_card()
 
@@ -2541,6 +2617,7 @@ def dryrun_check_row(arch: str, layers, predict: subprocess.Popen) -> dict:
         "loss_diff": abs(loss - plain_loss), "loss_tol": CHECK_LOSS_TOL,
         "flops_counted_plain": plain_flops,
         "dot_flops_predicted": pred["op_cost"]["dot_flops"],
+        "head_extra_flops": head_extra,
         "flops_predicted": pred["op_cost"]["flops"],
         "peak_bytes": peak, "peak_bytes_predicted": mem["peak_per_device_bytes"],
         "peak_ratio": peak / mem["peak_per_device_bytes"],
@@ -2556,9 +2633,9 @@ def dryrun_check_row(arch: str, layers, predict: subprocess.Popen) -> dict:
     res["step_over_bound"] = median / res["bound_s"]
     require(res["loss_diff"] <= CHECK_LOSS_TOL,
             f"DTensor loss {loss} against plain {plain_loss}")
-    require(plain_flops == res["dot_flops_predicted"],
+    require(plain_flops == res["dot_flops_predicted"] + head_extra,
             f"FlopCounterMode {plain_flops} against predicted dot FLOPs "
-            f"{res['dot_flops_predicted']}")
+            f"{res['dot_flops_predicted']} + the head's {head_extra}")
     require(abs(res["peak_ratio"] - 1) <= CHECK_PEAK_RTOL,
             f"peak {peak} against predicted {mem['peak_per_device_bytes']}")
     # the int32 step counter: the reference's argument, a Python int here
@@ -3086,6 +3163,15 @@ def main() -> int:
         dryrun_phases()
         emit({"partial": "dryrun phases only"})
         return 0
+    if sys.argv[1:] == ["--head-only"]:
+        # the training head's kernels row alone; not the whole smoke
+        emit({"gpu": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), "torch": torch.__version__})
+        emit({"kernels": [head_xent_entry()]})
+        emit({"partial": "the head's kernels row only"})
+        return 0
     if sys.argv[1:] == ["--elastic-only"]:
         # the elastic phase alone, for a short call; not the whole smoke
         emit({"gpu": subprocess.run(
@@ -3356,6 +3442,8 @@ def main() -> int:
             9 * x.numel() + 4 * nb, 8 * x.numel(), True))
         del x
         free_card()
+        head = head_xent_entry()
+        free_card()
 
         # -- the MoE, VLM and audio families at full width (depth cut)
         from repro_torch.configs.base import get_arch
@@ -3400,7 +3488,7 @@ def main() -> int:
             key = next(k for k in (*INGEST_KERNELS, "scatter_add",
                                    "int8_quant") if e["name"].startswith(k))
             e["ingest_launches"] = ingest_float["launches"].get(key, 0)
-        emit({"kernels": entries})
+        emit({"kernels": entries + [head]})
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit({"phase_seconds": dict(_PHASE_S)})

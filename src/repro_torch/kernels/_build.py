@@ -26,7 +26,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNEL_SOURCES = ("segstats", "blockscan", "scatter_add", "int8_quant")
+KERNEL_SOURCES = ("segstats", "blockscan", "scatter_add", "int8_quant",
+                  "xent")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

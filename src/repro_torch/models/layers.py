@@ -6,8 +6,11 @@ Port of :mod:`repro.models.layers`.  None of these was a Pallas kernel in
 the reference (XLA compiled them), so library calls are used freely.  The
 arithmetic follows the reference step for step, including where it asks
 for f32 results from low-precision operands (``preferred_element_type``):
-there the operands are upcast to f32 before the product.  TF32 stays off
-(PyTorch's default), so an f32 product on the card is a full f32 product.
+there the operands are upcast to f32 before the product, except in the
+head on the card (``logits_f32``, and the training loss through
+``kernels.xent.head_xent``), where one bf16 GEMM with an f32 output forms
+the same exact products.  TF32 stays off (PyTorch's default), so an f32
+product on the card is a full f32 product.
 
 Memory-critical paths are chunked as in the reference: attention runs
 block-wise with an online softmax, and the LM loss walks sequence chunks
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.kernels.xent import head_xent
 from repro_torch.sharding.specs import (constrain, from_local, is_sharded,
                                         local_offset)
 
@@ -486,7 +490,14 @@ def chunked_softmax_xent(x, w_out, labels, mask=None, chunk: int = 512
     """Mean cross-entropy without materialising (B, S, V) logits.
 
     x (B, S, D) final hidden states; w_out (D, V); labels (B, S) integer;
-    per-chunk logits are f32 (B, c, V)."""
+    per-chunk logits are f32 (B, c, V).  Plain bf16 tensors on a card take
+    ``kernels.xent.head_xent``: bf16 GEMMs with f32 accumulation, and each
+    chunk's logits recomputed in the backward rather than kept.  DTensors,
+    f32 models and CPU tensors take the autograd of the code below."""
+    if (x.device.type == "cuda" and x.dtype == torch.bfloat16
+            and w_out.dtype == torch.bfloat16
+            and not isinstance(x, DTensor) and not isinstance(w_out, DTensor)):
+        return head_xent(x, w_out, labels, mask, chunk)
     B, S, D = x.shape
     c = min(chunk, S)
     n = S // c

@@ -6,17 +6,20 @@ without one they skip.  On a host with a card::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import contextlib
 import hashlib
 
 import numpy as np
 import pytest
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import _build, batch, ops
 from repro_torch.kernels import blockscan as bs
 from repro_torch.kernels import int8_quant as q8
 from repro_torch.kernels import scatter_add as sc
 from repro_torch.kernels import segstats as ss
+from repro_torch.kernels import xent
 
 pytestmark = pytest.mark.cuda
 
@@ -1011,6 +1014,136 @@ def test_logits_f32_card_matches_cpu(dev):
     assert got.dtype == torch.float32
     torch.testing.assert_close(got.cpu(), want, rtol=0,
                                atol=1e-5 * want.abs().max().item())
+
+
+def _head_inputs(dev, B, S, D, V, seed=0):
+    """bf16 final hidden states of unit scale, a bf16 head of 0.02, the
+    next-token labels and mask (the last position off)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, S, D, generator=g, device=dev).bfloat16()
+    w = (torch.randn(D, V, generator=g, device=dev) * 0.02).bfloat16()
+    labels = torch.randint(0, V, (B, S), generator=g, device=dev)
+    mask = torch.ones(B, S, device=dev)
+    mask[:, -1] = 0.0
+    return x, w, labels, mask
+
+
+def _head_grads(fn, x, w, labels, mask):
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    loss = fn(xg, wg, labels, mask)
+    loss.backward()
+    return loss.detach().double(), xg.grad.double(), wg.grad.double()
+
+
+def test_head_xent_card_within_f32_rounding_of_f64(dev):
+    """The head on the card (bf16 GEMMs over the gradient's three bf16
+    terms, f32 accumulation) against an f64 product of the same bf16
+    operands, at B = 2, S = 1,024, D = 2,048, V = 151,936: loss, dX and dW
+    in f32, as the products leave them, no further off than today's f32
+    path (f32 leaves holding the same values, f32 GEMMs), with room for
+    another summation order; the gradient's hi term alone, a bf16
+    gradient, is far further off.  The autograd's bf16 gradients are the
+    f32 ones cast."""
+    from repro_torch.models import layers
+    B, S, D, V = 2, 1024, 2048, 151_936
+    x, w, labels, mask = _head_inputs(dev, B, S, D, V)
+    got = [t.double() for t in xent.head_xent_grads(x, w, labels, mask)]
+    f32 = _head_grads(layers.chunked_softmax_xent, x.float(), w.float(),
+                      labels, mask)
+    auto = _head_grads(xent.head_xent, x, w, labels, mask)
+    X, W = x.double().reshape(-1, D), w.double()
+    logits = X @ W
+    lab = labels.reshape(-1)
+    logz = torch.logsumexp(logits, -1)
+    m = mask.double().reshape(-1)
+    loss = ((logz - logits.gather(-1, lab[:, None])[:, 0]) * m).sum() / m.sum()
+    d = torch.exp(logits - logz[:, None])
+    del logits
+    d[torch.arange(d.shape[0], device=dev), lab] -= 1.0
+    d *= (m / m.sum())[:, None]
+    want = (loss, (d @ W.t()).reshape(B, S, D), X.t() @ d)
+    hi = d.float().bfloat16().double()
+    del d
+    hi_only = ((hi @ W.t()).reshape(B, S, D), X.t() @ hi)
+
+    def err(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    errs = {n: (err(g, e), err(f, e)) for n, g, f, e in
+            zip(("loss", "dx", "dw"), got, f32, want)}
+    assert all(g <= 2 * f + 1e-7 for g, f in errs.values()), errs
+    for g, h, e in zip(got[1:], hi_only, want[1:]):
+        assert err(h, e) > 20 * err(g, e), (err(h, e), err(g, e))
+    assert auto[0] == got[0]
+    for a, g, like in zip(auto[1:], got[1:], (x, w)):
+        assert torch.equal(a, g.to(like.dtype).double())
+
+
+@pytest.mark.parametrize("B,S,D,V,chunks", [(8, 2048, 2048, 151_936, 4),
+                                            (8, 1024, 3584, 32_000, 2)])
+def test_head_xent_launches_once_a_chunk_each_way(dev, B, S, D, V, chunks):
+    """At the MoE cell's and zamba2's shapes, the models' loss head launches
+    ``xent_rows`` once a chunk in the forward and ``xent_split`` once a
+    chunk in the backward, gives finite gradients, and runs under
+    ``FlopCounterMode``, which counts its eight products (the forward, the
+    logits recomputed, dx and dw over three terms each)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import layers
+    x, w, labels, _ = _head_inputs(dev, B, S, D, V, seed=1)
+    before = _build.launch_counts.snapshot()
+    with FlopCounterMode(display=False) as fc:
+        _, dx, dw = _head_grads(
+            lambda a, b, lab, m: layers.next_token_xent(a, b, lab), x, w,
+            labels, None)
+    after = _build.launch_counts.snapshot()
+    for name in (xent.ROWS, xent.SPLIT):
+        assert after.get(name, 0) - before.get(name, 0) == chunks, name
+    assert torch.isfinite(dx).all() and torch.isfinite(dw).all()
+    assert fc.get_total_flops() == 8 * 2 * B * S * D * V
+
+
+def test_head_xent_path_chosen_by_input(one_rank_nccl):
+    """Reduced qwen3-0.6b's loss on the card: a plain bf16 model launches
+    the head's kernels; the same model in f32, or in bf16 laid onto a
+    (1, 1) mesh as DTensors, takes today's autograd and launches none."""
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as P
+    from repro_torch.models.api import build_model, rules_for
+    from repro_torch.sharding.specs import distribute, set_rules
+    from repro_torch.train.loop import value_and_grad
+    dev = one_rank_nccl
+    tokens = torch.from_numpy(TokenPipeline(512, 32, 2).batch_at(0)).to(dev)
+
+    def launches(dtype, mesh):
+        cfg = reduced(get_arch("qwen3-0.6b")).replace(n_layers=1,
+                                                      dtype=dtype)
+        model = build_model(cfg, device=dev)
+        P.from_reference(model, P.init_params(
+            model.param_defs(), torch.Generator().manual_seed(0),
+            P.torch_dtype(dtype), "cpu"))
+        batch, ctx = {"tokens": tokens}, contextlib.nullcontext()
+        if mesh:
+            mesh = make_host_mesh(1, 1)
+            rules = rules_for(cfg, mesh, "train", fsdp=True)
+            P.distribute_params(model, mesh, rules)
+            assert isinstance(model._head(), DTensor)
+            batch = {"tokens": distribute(tokens, ("batch", "seq"), mesh,
+                                          rules)}
+            ctx = set_rules(mesh, rules)
+        before = _build.launch_counts.snapshot()
+        with ctx:
+            loss, _ = value_and_grad(model, batch)
+        assert bool(torch.isfinite(P.whole(loss)))
+        after = _build.launch_counts.snapshot()
+        return {k: after.get(k, 0) - before.get(k, 0)
+                for k in (xent.ROWS, xent.SPLIT)}
+
+    assert launches("bfloat16", False) == {xent.ROWS: 1, xent.SPLIT: 1}
+    assert launches("float32", False) == {xent.ROWS: 0, xent.SPLIT: 0}
+    assert launches("bfloat16", True) == {xent.ROWS: 0, xent.SPLIT: 0}
 
 
 @pytest.fixture

@@ -38,6 +38,7 @@ from repro_torch.core.cct import KIND_OP
 from repro_torch.core.metrics import MetricRegistry
 from repro_torch.core.sparse import MeasurementProfile
 from repro_torch.data import TokenPipeline
+from repro_torch.kernels import xent
 from repro_torch.launch import analyze
 from repro_torch.launch import train as launch_train
 from repro_torch.models import layers
@@ -144,6 +145,88 @@ def test_chunked_softmax_xent_matches_reference(chunk):
         jnp.asarray(x), jnp.asarray(w), jnp.asarray(labels),
         jnp.asarray(mask), chunk=chunk))
     assert got == pytest.approx(want, rel=RTOL)
+
+
+def test_head_xent_split_is_exact():
+    """``hi + mid + lo == d`` bit for bit over every exponent from 2**-110
+    to bf16's largest finite magnitude, both signs, zeros included; below
+    2**-110 the sum is within 2**-134, bf16's subnormal spacing."""
+    rng = np.random.default_rng(11)
+    n = 200_000
+    bits = (rng.integers(0, 2, n) << 31 | rng.integers(0, 255, n) << 23
+            | rng.integers(0, 2 ** 23, n)).astype(np.uint32)
+    d = torch.from_numpy(np.concatenate([
+        bits.view(np.float32), np.float32([0.0, -0.0, 2.0 ** -110,
+                                           -2.0 ** -110])]))
+    d = d[torch.isfinite(d) & (d.abs() < 2.0 ** 127 * (2 - 2.0 ** -8))]
+    hi, mid, lo = xent.split3(d)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    total = (hi.float() + mid.float()) + lo.float()
+    exact = (d.abs() >= 2.0 ** -110) | (d == 0)
+    assert int(exact.sum()) > n // 2 and int((~exact).sum()) > n // 20
+    assert torch.equal(total[exact], d[exact])  # -0.0 sums to +0.0
+    assert float((total - d)[~exact].abs().max()) <= 2.0 ** -134
+
+
+@pytest.mark.parametrize("chunk,vocab,masked", [(32, 50, True),
+                                                (8, 50, True),
+                                                (8, 37, False)])
+def test_head_xent_plain_matches_autograd(chunk, vocab, masked):
+    """The head's algorithm in plain PyTorch (the passes, the split into
+    three bf16 terms, their products summed) against today's autograd of
+    ``chunked_softmax_xent``, f32 on the CPU: loss, dX and dW, with one and
+    several chunks, a mask and a vocabulary no multiple of 4."""
+    rng = np.random.default_rng(5)
+    x = _t(rng.normal(size=(2, 32, 16)).astype(np.float32))
+    w = _t(rng.normal(size=(16, vocab)).astype(np.float32))
+    labels = _t(rng.integers(0, vocab, (2, 32)))
+    mask = (_t((rng.uniform(size=(2, 32)) > 0.2).astype(np.float32))
+            if masked else None)
+    want, got = [], []
+    for fn, out in ((layers.chunked_softmax_xent, want),
+                    (xent.head_xent_plain, got)):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        loss = fn(xg, wg, labels, mask, chunk=chunk)
+        loss.backward()
+        out += [loss.detach(), xg.grad, wg.grad]
+    for g, e in zip(got, want):
+        torch.testing.assert_close(g, e, rtol=RTOL, atol=ATOL)
+
+
+def test_head_xent_keeps_no_logits_for_backward():
+    """No tensor that the head saves for its backward holds a chunk's
+    logits (B * c * V values), let alone the whole (B, S, V); today's
+    autograd keeps such tensors for every chunk, which the hooks see."""
+    B, S, D, V, chunk = 2, 32, 8, 64, 8
+    rng = np.random.default_rng(6)
+    x = _t(rng.normal(size=(B, S, D)).astype(np.float32)).requires_grad_()
+    w = _t(rng.normal(size=(D, V)).astype(np.float32)).requires_grad_()
+    labels = _t(rng.integers(0, V, (B, S)))
+    for fn, keeps in ((xent.head_xent_plain, False),
+                      (layers.chunked_softmax_xent, True)):
+        sizes = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: sizes.append(t.numel()) or t, lambda t: t):
+            loss = fn(x, w, labels, chunk=chunk)
+        held = sum(n >= B * chunk * V for n in sizes)
+        assert held >= S // chunk if keeps else held == 0
+        loss.backward()
+
+
+def test_chunked_softmax_xent_keeps_todays_path_off_the_card(monkeypatch):
+    """CPU tensors, bf16 ones too, take today's autograd: the card's head
+    is never called."""
+    def card_only(*a, **k):
+        raise AssertionError("head_xent called for CPU tensors")
+
+    monkeypatch.setattr(layers, "head_xent", card_only)
+    rng = np.random.default_rng(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _t(rng.normal(size=(2, 16, 8)).astype(np.float32)).to(dtype)
+        w = _t(rng.normal(size=(8, 24)).astype(np.float32)).to(dtype)
+        loss = layers.chunked_softmax_xent(x, w, _t(rng.integers(0, 24,
+                                                                 (2, 16))))
+        assert torch.isfinite(loss)
 
 
 # ---------------------------------------------------------------------------
