@@ -26,8 +26,10 @@ Numbers compared, each a gap that must not pass its limit:
   in the forward pass's precision;
 * ``profile_steps_gap``: trace samples in the profile less steps run;
 * ``profile_time_gap``: the profile's total ``host.step_time`` less the
-  sum of the steps' own times, relative: exact, since the Profiler adds
-  the same values in the same order.
+  sum of the steps' own times, relative: exact, since the sum is taken as
+  the Profiler takes it, one step after another in the steps' order
+  (Python's ``sum()`` of floats is compensated, and differs from that by
+  a rounding on some runs).
 """
 from __future__ import annotations
 
@@ -95,7 +97,9 @@ def gaps(prog: dict, ref: dict) -> dict:
 
 def profile_gaps(profile: dict, steps: int, step_times: list[float]) -> dict:
     total = profile["totals"].get("host.step_time", 0.0)
-    want = sum(step_times)
+    want = 0.0
+    for t in step_times:
+        want += float(t)
     return {"profile_steps_gap": abs(profile["samples"] - steps),
             "profile_time_gap": abs(total - want) / want}
 

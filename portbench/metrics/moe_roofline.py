@@ -1,6 +1,9 @@
 """MoE block (``models/moe.py::moe_block``): its forward and backward
 alone at the cell's shape (the batch's tokens through layer 0's router
-and experts), by CUDA events, against ``roofline.moe``'s least time."""
+and gated experts), by CUDA events, against ``roofline.moe``'s least
+time.  Measured in the MoE family it was written for, where every layer
+is attention and experts; another family's experts bring a probe of
+their own."""
 import torch
 
 from portbench import roofline, timing
@@ -10,7 +13,7 @@ UNIT = "%"
 
 def probe(live):
     cfg = live.cfg
-    if not cfg.n_experts:
+    if cfg.family != "moe":
         return None
     from repro_torch.models.moe import moe_block
     wl, blk = live.workload, live.model.layers[0]

@@ -2,7 +2,9 @@
 forward and backward alone at the cell's shape (the batch's rows and
 tokens, the model's heads, head size 64, state size, keys shared by the
 heads, its chunk), on float32 inputs as the Mamba2 block hands them over,
-by CUDA events, against ``roofline.scan``'s least time."""
+by CUDA events, against ``roofline.scan``'s least time.  Measured in the
+hybrid family it was written for (one key group, ``d_inner`` from
+``ssm_expand``); another family's scan brings a probe at its own shape."""
 import torch
 import torch.nn.functional as F
 
@@ -13,7 +15,7 @@ UNIT = "%"
 
 def probe(live):
     cfg = live.cfg
-    if not cfg.ssm_state:
+    if cfg.family != "hybrid":
         return None
     from repro_torch.models.ssm import linear_rnn_chunked
     wl = live.workload

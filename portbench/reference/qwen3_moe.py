@@ -5,8 +5,8 @@ configuration, the final norm, the untied head and the mean next-token
 cross-entropy plus the router's load-balancing term.
 
 Parameters are a flat dict in the port's parameter names (``embed``,
-``layers.<i>.wq``, ...), each (D, X) product ``x @ w``.  Imports torch
-and this folder alone.
+``layers.<i>.wq``, ...), each (D, X) product ``x @ w``.  Imports torch,
+this folder and the benchmark's counts (``portbench/roofline.py``) alone.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from portbench import roofline
 from portbench.reference.common import (causal_attention, next_token_xent,
                                         rms_norm, rope)
 
@@ -123,3 +124,19 @@ def loss(params: dict, tokens, run: dict, mm):
     x = rms_norm(x, params["final_norm"], run["norm_eps"])
     return (next_token_xent(x, params["lm_head"], tokens, mm)
             + 0.01 * sum(auxes) / run["n_layers"])
+
+
+def step_flops(run: dict, B: int, S: int) -> float:
+    """A training step's nominal operations: 6 x the parameters that take
+    part in products (the attention's projections, the router, the top-k
+    experts a token visits, the head; the embedding lookup is not a
+    product) x tokens, plus every layer's attention scores."""
+    tokens = B * S
+    D, V = run["d_model"], run["vocab_size"]
+    H, KVH, hd = run["n_heads"], run["n_kv_heads"], run["head_dim"]
+    attn_params = D * H * hd * 2 + D * KVH * hd * 2
+    E, K, F = run["n_experts"], run["top_k"], run["moe_d_ff"]
+    per_layer = attn_params + D * E + K * 3 * D * F
+    params = run["n_layers"] * per_layer + D * V
+    scores = run["n_layers"] * roofline.attention(B, S, H, KVH, hd)[0]
+    return 6.0 * params * tokens + scores

@@ -16,6 +16,7 @@ Imports torch, numpy and this benchmark's own files alone.
 from __future__ import annotations
 
 import importlib
+from pathlib import Path
 
 import torch
 
@@ -26,10 +27,25 @@ from portbench.reference.common import adamw_step, mm_f32, mm_fp8, no_tf32
 PRECISIONS = {"float32": mm_f32, "float8": mm_fp8}
 
 
+# the families whose module bears the name of the configuration it was written for
+MODULES = {"moe": "qwen3_moe", "hybrid": "zamba2"}
+
+
 def family(run: dict):
-    """The reference module of a configuration's family."""
-    name = {"moe": "qwen3_moe", "hybrid": "zamba2"}[run["family"]]
-    return importlib.import_module(f"portbench.reference.{name}")
+    """The reference module of a configuration's family:
+    ``portbench/reference/<name>.py``, ``<name>`` the family's entry in
+    ``MODULES`` or else the family itself, so that a new family is a new
+    file.  It gives ``param_specs(run)``, ``loss(params, tokens, run, mm)``
+    and, where the family has a count, ``step_flops(run, B, S)``."""
+    name = MODULES.get(run["family"], run["family"])
+    module = f"portbench.reference.{name}"
+    try:
+        return importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise SystemExit(f"portbench: no reference for family {run['family']!r} "
+                         f"({Path(__file__).parent / f'{name}.py'})") from None
 
 
 @torch.no_grad()

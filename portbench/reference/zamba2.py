@@ -12,8 +12,8 @@ The recurrence is computed here in its quadratic form over the whole
 sequence (``y_t = sum_{s <= t} exp(cum_t - cum_s) (C_t . B_s) x_s dt_s``),
 not in chunks as the program does.
 
-Parameters are a flat dict in the port's names.  Imports torch and this
-folder alone.
+Parameters are a flat dict in the port's names.  Imports torch, this
+folder and the benchmark's counts (``portbench/roofline.py``) alone.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from portbench import roofline
 from portbench.reference.common import (causal_attention, glu,
                                         next_token_xent, rms_norm, rope)
 
@@ -132,3 +133,25 @@ def loss(params: dict, tokens, run: dict, mm):
                        use_reentrant=False)
     x = rms_norm(x, params["final_norm"], run["norm_eps"])
     return next_token_xent(x, params["lm_head"], tokens, mm)
+
+
+def step_flops(run: dict, B: int, S: int) -> float:
+    """A training step's nominal operations: 6 x the parameters that take
+    part in products (each Mamba2 layer's projections, the shared block as
+    often as it is applied, the head; not the lookup or the convolution) x
+    tokens, plus the shared block's attention scores and every layer's
+    scan at its chunk."""
+    tokens = B * S
+    D, V = run["d_model"], run["vocab_size"]
+    H, KVH = run["n_heads"], run["n_kv_heads"]
+    hd = D // H
+    attn_params = D * H * hd * 2 + D * KVH * hd * 2
+    DI = run["ssm_expand"] * D
+    Hs, N = DI // 64, run["ssm_state"]
+    mamba = D * (2 * DI + 2 * N + Hs) + DI * D
+    n_attn = -(-run["n_layers"] // run["attn_every"])
+    shared = attn_params + 3 * D * run["d_ff"]
+    params = run["n_layers"] * mamba + n_attn * shared + D * V
+    scores = n_attn * roofline.attention(B, S, H, KVH, hd)[0]
+    extra = run["n_layers"] * roofline.scan(B, S, Hs, 64, N, run["ssm_chunk"])[0]
+    return 6.0 * params * tokens + scores + extra

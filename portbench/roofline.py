@@ -64,33 +64,13 @@ def scan(B: int, S: int, H: int, P: int, N: int, chunk: int,
     return flops, nbytes
 
 
-def step_flops(run: dict, B: int, S: int) -> float:
-    """A training step's nominal operations: 6 x the parameters that take
-    part in products (as often as they are applied; the embedding lookup
-    is not a product, the head is) x tokens, plus the attention scores'
-    products, and for a Mamba2 hybrid the scan's at its chunk."""
-    tokens = B * S
-    D, V = run["d_model"], run["vocab_size"]
-    H, KVH = run["n_heads"], run["n_kv_heads"]
-    hd = run.get("head_dim") or D // H
-    attn_params = D * H * hd * 2 + D * KVH * hd * 2
-    head = D * V
-    if run["family"] == "moe":
-        E, K, F = run["n_experts"], run["top_k"], run["moe_d_ff"]
-        per_layer = attn_params + D * E + K * 3 * D * F
-        n_attn = run["n_layers"]
-        params = run["n_layers"] * per_layer + head
-        extra = 0.0
-    else:
-        DI = run["ssm_expand"] * D
-        Hs, N = DI // 64, run["ssm_state"]
-        mamba = D * (2 * DI + 2 * N + Hs) + DI * D
-        n_attn = -(-run["n_layers"] // run["attn_every"])
-        shared = attn_params + 3 * D * run["d_ff"]
-        params = run["n_layers"] * mamba + n_attn * shared + head
-        extra = run["n_layers"] * scan(B, S, Hs, 64, N, run["ssm_chunk"])[0]
-    scores = n_attn * attention(B, S, H, KVH, hd)[0]
-    return 6.0 * params * tokens + scores + extra
+def step_flops(run: dict, B: int, S: int) -> float | None:
+    """A training step's nominal operations at ``B`` x ``S`` tokens, as the
+    configuration's family counts them (``reference/<family>.py``'s
+    ``step_flops``); None where the family gives no count."""
+    from portbench.reference.train import family
+    count = getattr(family(run), "step_flops", None)
+    return None if count is None else count(run, B, S)
 
 
 def share(probe: dict | None) -> float | None:

@@ -17,8 +17,6 @@ from portbench import harness, inputs, judge  # noqa: E402
 from portbench.reference import train as ref_train  # noqa: E402
 from portbench.traffic import train  # noqa: E402
 
-from test_portbench_reference import TINY  # noqa: E402
-
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [c["name"] for c in BENCH["workloads"]]
 
@@ -27,7 +25,7 @@ def tiny_ctx(cell: str, seed: int, trace: bool = False) -> harness.Context:
     wl = harness.load_json("workloads", cell)
     wl.update(batch=4, seq=32, trace_steps=1)
     cfg = harness.load_json("configs", wl["config"])
-    cfg["run"].update(TINY[wl["config"]])
+    cfg["run"].update(cfg["tiny"])
     return harness.Context(wl, cfg, seed, 0.3, trace, "cpu", time.perf_counter(),
                            harness.metric_modules())
 
@@ -84,6 +82,30 @@ def test_a_profile_that_misses_steps_is_not_correct(cell, monkeypatch):
     out = train.run(tiny_ctx(cell, 2**31 + 13))
     assert not out["correct"]
     assert out["compared"]["profile_steps_gap"]["value"] > 0
+
+
+
+@pytest.mark.parametrize("times", [[0.1] * 10, [2.2] * 7 + [1e-14] * 3 + [2.2] * 14],
+                         ids=["tenths", "mixed_scale"])
+def test_the_profile_time_gap_is_exact_for_the_profilers_sum(times, tmp_path):
+    """The Profiler adds step times one after another; ``sum()`` is
+    compensated and differs from that on these times, which a sound run
+    can meet.  The check's own sum has to be the Profiler's."""
+    from portbench import profile_file
+    from repro_torch.profiling import Profiler
+    seq = 0.0
+    for t in times:
+        seq += t
+    assert sum(times) != seq
+    prof = Profiler({"rank": 0})
+    for t in times:
+        prof.on_step({"step_time": t})
+    prof.finish(tmp_path / "worker0.rprf")
+    profile = profile_file.read(tmp_path / "worker0.rprf")
+    assert judge.profile_gaps(profile, len(times), times) == {
+        "profile_steps_gap": 0, "profile_time_gap": 0.0}
+    assert judge.profile_gaps(profile, len(times), times + [0.1])[
+        "profile_time_gap"] > 0
 
 
 def _readings(cell: str, seed: int, device, **kw) -> tuple[dict, dict]:

@@ -3,6 +3,7 @@ file name; a run without a card exits non-zero and prints no result; the
 import boundary."""
 import json
 import os
+import pkgutil
 import subprocess
 import sys
 from pathlib import Path
@@ -79,9 +80,9 @@ def test_a_run_loads_neither_jax_nor_the_jax_package():
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    top = _loaded("portbench.reference.train", "portbench.reference.qwen3_moe",
-                  "portbench.reference.zamba2", "portbench.judge",
-                  "portbench.profile_file", "portbench.roofline")
+    refs = pkgutil.iter_modules([str(ROOT / "portbench" / "reference")])
+    top = _loaded(*(f"portbench.reference.{m.name}" for m in refs),
+                  "portbench.judge", "portbench.profile_file", "portbench.roofline")
     assert not top & {"repro_torch", *harness.FOREIGN}
 
 

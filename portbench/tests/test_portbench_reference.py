@@ -1,6 +1,7 @@
 """The plain references against the port, at tiny sizes on the CPU: the
-loss and every gradient of both families, the same dropped copies under
-capacity, one AdamW update."""
+loss and every gradient of each configuration in ``BENCHMARK.json`` at
+its file's ``tiny`` sizes, the same dropped copies under capacity, one
+AdamW update."""
 import copy
 import json
 import sys
@@ -16,20 +17,14 @@ from portbench import inputs  # noqa: E402
 from portbench.reference import common, qwen3_moe, zamba2  # noqa: E402
 from portbench.reference.train import family  # noqa: E402
 
-TINY = {
-    "qwen3-moe-30b-a3b": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
-                              head_dim=16, d_ff=32, moe_d_ff=32, vocab_size=256,
-                              n_experts=8, top_k=2, capacity_factor=1.0,
-                              q_chunk=16, kv_chunk=16, dtype="float32"),
-    "zamba2-7b": dict(n_layers=3, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
-                      vocab_size=256, ssm_state=16, attn_every=2, ssm_chunk=8,
-                      q_chunk=16, kv_chunk=16, dtype="float32"),
-}
+CONFIGS = sorted(c["name"] for c in
+                 json.loads((ROOT / "BENCHMARK.json").read_text())["configs"])
 
 
 def tiny_run(config: str) -> dict:
-    run = json.loads((ROOT / "portbench" / "configs" / f"{config}.json").read_text())["run"]
-    return {**run, **TINY[config]}
+    """The configuration's ``run`` with its ``tiny`` sizes for the CPU."""
+    cfg = json.loads((ROOT / "portbench" / "configs" / f"{config}.json").read_text())
+    return {**cfg["run"], **cfg["tiny"]}
 
 
 def port_model(run: dict, seed: int):
@@ -40,7 +35,7 @@ def port_model(run: dict, seed: int):
     return model
 
 
-@pytest.mark.parametrize("config", sorted(TINY))
+@pytest.mark.parametrize("config", CONFIGS)
 def test_loss_and_gradients_match_the_port(config):
     from repro_torch.train.loop import value_and_grad
     run = tiny_run(config)
